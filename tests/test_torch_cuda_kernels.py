@@ -1,0 +1,76 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(marked `cuda`; skipped where there is no GPU, since a CUDA kernel has no
+CPU mode). Run on a GPU host with:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q
+
+Tolerance: rel RMS <= 1e-4 in fp32 (sums in another order)."""
+
+import pytest
+import torch
+
+from qwen3_tts_tpu_torch.config import TokenizerDecoderConfig
+from qwen3_tts_tpu_torch.ops.cuda import pretransformer_kernel as ptk
+from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+from qwen3_tts_tpu_torch.ops.cuda import upsample_kernel as upk
+from qwen3_tts_tpu_torch.ops.cuda import vocoder_kernels as vk
+from qwen3_tts_tpu_torch.testing import random_vocoder_params
+
+pytestmark = pytest.mark.cuda
+torch.set_num_threads(1)
+
+CFG = TokenizerDecoderConfig(
+    latent_dim=96, hidden_size=128, intermediate_size=192, head_dim=64,
+    num_attention_heads=2, num_hidden_layers=2, decoder_dim=160,
+    upsample_rates=(4, 3), upsampling_ratios=(2, 2),
+)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def rel_rms(got, ref):
+    return float(((got.double() - ref.double()) ** 2).mean().sqrt()
+                 / (ref.double() ** 2).mean().sqrt())
+
+
+@pytest.mark.parametrize("m", [1, 2, 37])
+def test_int8_matmul_kernel(dev, m):
+    g = torch.Generator(device=dev).manual_seed(m)
+    o, k = 200, 320
+    w8 = torch.randint(0, 256, (o, k), generator=g, device=dev, dtype=torch.uint8)
+    s = torch.rand(o, k // 64, generator=g, device=dev) * 1e-2
+    b = torch.randn(o, k // 64, generator=g, device=dev) * 0.1
+    x = torch.randn(m, k, generator=g, device=dev)
+    before = qm.launches
+    got = qm.int8_matmul(x, {"w8": w8, "scales": s, "biases": b})
+    assert qm.launches == before + 1
+    assert rel_rms(got, qm.int8_matmul_plain(x, w8, s, b)) <= 1e-4
+
+
+def test_vocoder_kernels(dev):
+    p = random_vocoder_params(CFG, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    kp = ptk.build_pretransformer_params(p["pre_transformer"], CFG, torch.float32)
+    x = torch.randn(2, 19, CFG.latent_dim, generator=g, device=dev)
+    kw = dict(nh=CFG.num_attention_heads, hd=CFG.head_dim, eps=CFG.rms_norm_eps)
+    assert rel_rms(ptk.pre_transformer_packed(kp, x, **kw),
+                   ptk.pre_transformer_plain(kp, x, **kw)) <= 1e-4
+
+    sp = upk.build_upsample_stage_params(p["upsample"][1], torch.float32,
+                                         initial_conv=p["decoder"]["initial_conv"])
+    assert rel_rms(upk.upsample_stage_fused(sp, x), upk.upsample_stage_plain(sp, x)) <= 1e-4
+
+    dec = p["decoder"]
+    tail = {"snake": dec["out_snake"], "conv": dec["out_conv"]}
+    for i, rate in enumerate(CFG.upsample_rates):
+        bp = vk.build_seanet_block_params(dec["blocks"][i], rate, torch.float32,
+                                          tail=tail if i == 1 else None)
+        y = torch.randn(2, 90, bp["u_w2"].shape[-1], generator=g, device=dev) * 0.5
+        assert rel_rms(vk.residual_units_fused(bp, y), vk.residual_units_plain(bp, y)) <= 1e-4
