@@ -1,10 +1,12 @@
 """Code predictor (MTP head): the 5-layer transformer that predicts codec
 groups 1..15 of a frame from the talker's last hidden state and code 0
-(counterpart of qwen3_tts_tpu/models/code_predictor.py, non-kernel path).
+(counterpart of qwen3_tts_tpu/models/code_predictor.py).
 
-Layer weights, the 15 codec-embedding tables and the 15 lm_heads are stacked
-on leading axes; the per-frame loop keeps a 16-slot KV cache and runs on the
-device without host syncs (codes stay device tensors).
+With a megakernel tree under params["kernel"] and B == 1 a frame is one
+call of K2 (ops/cuda/cp_megakernel.py; its plain version for CPU tensors).
+Otherwise layer weights, the 15 codec-embedding tables and the 15 lm_heads
+are stacked on leading axes; the per-frame loop keeps a 16-slot KV cache
+and runs on the device without host syncs (codes stay device tensors).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from ..config import CodePredictorConfig
 from ..ops import rope as rope_ops
 from ..ops.attention import gqa_attention_full
+from ..ops.cuda import cp_megakernel as cpk
 from ..ops.linear import linear, table_matmul, table_row
 from ..ops.norms import rms_norm
 from ..ops.sampling import NEG_INF, sample_token
@@ -90,6 +93,15 @@ def predict_frame(
     ng = config.num_code_groups - 1
     b = code_hidden.shape[0]
     dtype, dev = code_hidden.dtype, code_hidden.device
+    if "kernel" in params and b == 1:
+        buf = None if logits_out is None else torch.empty(ng, config.vocab_size, device=dev)
+        out = cpk.predict_frame(
+            params["kernel"], code_hidden, code0_embed, cpk.frame_seed(generator, dev),
+            temperature, seen_cp, config, repetition_penalty, forced_codes, buf,
+        )
+        if buf is not None:
+            logits_out.extend(buf.unbind(0))
+        return out
     shape = (config.num_hidden_layers, b, config.num_key_value_heads, CP_CACHE_LEN,
              config.head_dim)
     cache_k = torch.zeros(shape, dtype=dtype, device=dev)

@@ -11,7 +11,9 @@ stop within the chunk are dropped. Codes cross to the host once per chunk.
 
 The KV cache is a ring of capacity prompt + RING_SLACK slots whose decode
 attention masks keys by absolute position against the window start (the
-reference's trim schedule reproduced exactly).
+reference's trim schedule reproduced exactly). With a megakernel tree under
+params["kernel"], prefill hands the cache over in K1's layout and each
+talker step is one call of K1 (ops/cuda/talker_megakernel.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import Qwen3TTSConfig
+from ..ops.cuda import talker_megakernel as tmk
 from ..ops.sampling import NEG_INF, sample_token, talker_valid_mask
 from . import code_predictor as cp_mod
 from . import talker as talker_mod
@@ -38,6 +41,8 @@ def prefill(params: dict, prompt_data, config: Qwen3TTSConfig) -> dict:
     dev = embeds.device
     cache = talker_mod.init_kv_cache(config, p + RING_SLACK, 1, embeds.dtype, dev)
     h_last, cache = talker_mod.talker_prefill(params, embeds, cache, config)
+    if "kernel" in params:
+        cache = tmk.cache_to_kernel_layout(cache)
     cc = config.code_predictor_config
 
     def i64(v):
@@ -121,16 +126,24 @@ def decode_step(
         has_text, trailing.index_select(1, t_idx.reshape(1)), state["tts_pad_embed"]
     )
     input_embed = (text_embed + embed_sum).to(state["h_last"].dtype)
-    h, cache = talker_mod.talker_decode_step(
-        params, input_embed, state["cache"], state["total_len"], state["window_start"],
-        config,
-    )
+    if "kernel" in params:
+        cos, sin = talker_mod.rope_cos_sin(config, state["total_len"].reshape(1, 1))
+        h, logits, cache = tmk.talker_step(
+            params["kernel"], input_embed, state["cache"], state["total_len"],
+            state["window_start"], cos[0, 0], sin[0, 0], config,
+        )
+    else:
+        h, cache = talker_mod.talker_decode_step(
+            params, input_embed, state["cache"], state["total_len"], state["window_start"],
+            config,
+        )
+        logits = talker_mod.codec_head(params, h)[0, 0]
     total_len = state["total_len"] + 1
     step = state["step"] + 1
     state.update(
         cache=cache,
         h_last=h,
-        logits=talker_mod.codec_head(params, h)[0, 0],
+        logits=logits,
         total_len=total_len,
         step=step,
         window_start=torch.where(

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 All sources under `qwen3_tts_tpu_torch/csrc/` compile, on first use, with
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC`
-into one shared library with a plain C interface, loaded with ctypes. The
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC` (one nvcc
+per source, run in parallel) and link into one shared library with a plain
+C interface, loaded with ctypes. The
 library goes to `build/kernels/` at the repository root (listed in
 .gitignore), or to `$QWEN3TTS_KERNEL_BUILD_DIR`, and is rebuilt when a
 source is newer. Nothing here runs at import time.
@@ -57,18 +58,29 @@ def build(force: bool = False) -> str:
         and os.path.getmtime(lib) >= max(os.path.getmtime(p) for p in deps)
     ):
         return lib
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC"]
+    # one nvcc per source, all started together, then one link
+    objs = {src: os.path.join(out_dir, os.path.basename(src) + ".o") for src in sources()}
+    procs = {
+        src: subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in objs.items()
+    }
+    logs = {src: p.communicate()[0] for src, p in procs.items()}
+    failed = [src for src, p in procs.items() if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs[s][-8000:] for s in failed))
+    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
+        f.write("".join(logs.values()))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *sources(),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *flags, "-shared", "-o", tmp, *objs.values()],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(proc.stderr)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
     os.replace(tmp, lib)
     return lib
 
@@ -101,6 +113,9 @@ _SIGNATURES = {
     "qt_up_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_up_dwconv_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qt_units_gemm": [ctypes.POINTER(GemmArgs), _P],
+    "qt_talker_step": [_P, _P],
+    "qt_cp_frame": [_P, _P, _P],
+    "qt_gumbel_sample": [_P, _I, _F, _P, _I, _P, _P],
 }
 
 
@@ -129,6 +144,13 @@ def check(rc: int, name: str) -> None:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def struct_fields(fields: str) -> list[tuple[str, type]]:
+    """ctypes fields from "name:kind" words (kind p = pointer, i = int,
+    f = float), in the order of the C struct they mirror."""
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    return [(w.split(":")[0], kinds[w.split(":")[1]]) for w in fields.split()]
 
 
 def is_bf16(t: torch.Tensor) -> int:

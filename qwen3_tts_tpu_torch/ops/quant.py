@@ -1,18 +1,25 @@
-"""Group-affine quantization on the host (numpy), for the PyTorch port.
+"""Quantization for the PyTorch port.
 
 Copies of the numpy quantizers in qwen3_tts_tpu/ops/quant.py (tests pin them
-equal): the int8 affine scheme the runtime uses,
+equal): the int8 group affine scheme of K3,
 
   w[o, i] ~= scales[o, i // G] * q[o, i] + biases[o, i // G],  q uint8,
 
-and the packed-bit unpack/dequant that dequantize-on-load checkpoints need.
-The TPU kernel-layout repack (`w8_kl` lane permutation) is not copied: the
-CUDA kernel reads the plain [out, in] uint8 rows.
+the rowwise signed int8 scheme of the megakernels K1/K2 (W8A8),
+
+  w[o, i] ~= s[o] * q[o, i] + m[o],  q int8 in [-127, 127],
+  y[o] = sx * s[o] * (xq . q[o]) + m[o] * (sx * sum(xq)),
+
+with x ~= sx * xq quantized symmetrically per row, and the packed-bit
+unpack/dequant that dequantize-on-load checkpoints need. The TPU
+kernel-layout repack (`w8_kl` lane permutation) is not copied: the CUDA
+kernels read plain [out, in] rows.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _VALID_BITS = (2, 3, 4, 6, 8)
 
@@ -153,3 +160,85 @@ def apply_int8_quantization(params: dict, group_size: int = 64) -> dict:
                 continue
             out[name] = _quantize_int8_entry(out[name], group_size)
     return out
+
+
+def quantize_rowwise_int8_np(w: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-output-row signed int8 affine quantization, w ~= s[o] * q[o, :] +
+    m[o] with q in [-127, 127] (rounding half to even, as numpy does);
+    leading axes are kept (rows = last-but-one axis). The megakernels'
+    weight format."""
+    w = np.asarray(w, np.float32)
+    mx = w.max(axis=-1)
+    mn = w.min(axis=-1)
+    scale = np.maximum((mx - mn) / 254.0, 1e-12).astype(np.float32)
+    mid = ((mx + mn) / 2.0).astype(np.float32)
+    q = np.clip(np.round((w - mid[..., None]) / scale[..., None]), -127, 127)
+    return q.astype(np.int8), scale, mid
+
+
+# Talker / code-predictor layer linears whose entries are views of the
+# megakernels' rowwise int8 buffers: (layer key, kernel prefix)
+KERNEL_SHARED_LINS = (
+    ("qkv_proj", "qkv"), ("o_proj", "o"),
+    ("gateup_proj", "gu"), ("down_proj", "dn"),
+)
+
+
+def kernel_w8r_view(kernel_tree: dict, pre: str) -> dict:
+    """A {"w8r", "s", "m"} linear / table entry holding the very tensors
+    `pre`_q / _s / _m of a megakernel tree (no copy)."""
+    return {
+        "w8r": kernel_tree[f"{pre}_q"],
+        "s": kernel_tree[f"{pre}_s"],
+        "m": kernel_tree[f"{pre}_m"],
+    }
+
+
+def quantize_act_sym(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 activation quantization (the A8 of W8A8):
+    x ~= sx * xq with sx = max(max|x| / 127, 1e-12), xq = clip(round(x / sx),
+    -127, 127) rounded half to even. Returns (xq as fp32 integers, sx fp32
+    [..., 1])."""
+    x = x.float()
+    sx = torch.clamp_min(x.abs().amax(-1, keepdim=True) / 127.0, 1e-12)
+    return torch.clamp(torch.round(x / sx), -127, 127), sx
+
+
+def w8a8_linear_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      m: torch.Tensor) -> torch.Tensor:
+    """y = x @ (s * q + m).T with x quantized per row: the megakernels'
+    W8A8 arithmetic in plain PyTorch. q int8 [O, K]; s, m fp32 [O]. The
+    integer dot runs in float64, where it is exact, and is then rounded to
+    fp32 as an int32 dot would be."""
+    xq, sx = quantize_act_sym(x)
+    acc = (xq.double() @ q.double().T).float()
+    sum_xq = xq.sum(-1, keepdim=True)
+    return sx * s.float() * acc + m.float() * (sx * sum_xq)
+
+
+def dense_entry_np(entry: dict) -> np.ndarray:
+    """A linear / table entry as a dense float32 numpy weight, from dense
+    ("w"), int8 group affine ("w8") or bit-packed ("wq") storage."""
+    if "w" in entry:
+        return np.asarray(entry["w"], np.float32)
+    if "w8" in entry:
+        w8 = np.asarray(entry["w8"], np.float32)
+        scales = np.asarray(entry["scales"], np.float32)
+        biases = np.asarray(entry["biases"], np.float32)
+        g = w8.shape[-1] // scales.shape[-1]
+        r = w8.reshape(*w8.shape[:-1], scales.shape[-1], g)
+        return (r * scales[..., None] + biases[..., None]).reshape(w8.shape)
+    bits, gs, _ = derive_packed_dims(entry)
+    wq = np.asarray(entry["wq"])
+    scales = np.asarray(entry["scales"], np.float32)
+    biases = np.asarray(entry["biases"], np.float32) if "biases" in entry else None
+    lead = wq.shape[:-2]
+    flat_wq = wq.reshape(-1, *wq.shape[-2:])
+    flat_s = scales.reshape(-1, *scales.shape[-2:])
+    flat_b = biases.reshape(-1, *biases.shape[-2:]) if biases is not None else None
+    dense = np.stack([
+        dequantize_np(flat_wq[i], flat_s[i], flat_b[i] if flat_b is not None else None,
+                      bits=bits, group_size=gs)
+        for i in range(flat_wq.shape[0])
+    ])
+    return dense.reshape(*lead, *dense.shape[-2:]).astype(np.float32)

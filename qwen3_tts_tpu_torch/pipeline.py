@@ -8,9 +8,14 @@ Model directory layout (the reference's):
   tokenizer.json         BPE tokenizer
   speech_tokenizer/      vocoder config.json + model.safetensors
 
-Loading quantizes every talker and code-predictor linear and table to int8
-group-64 affine (runtime_quantization_mode="int8"); those linears run the
-K3 kernel, and the vocoder runs K4/K5/K6 when use_vocoder_kernels is set.
+Loading quantizes the talker and code predictor for int8 runtime
+(runtime_quantization_mode="int8"). With the megakernels on (the default on
+CUDA) the decode loop runs K1 per talker step and K2 per code-predictor
+frame, and their rowwise int8 trees are the only resident copy of the
+layer weights, the codec head and the cp tables: prefill reads them through
+`w8r` views. Every other linear and table is int8 group-64 affine and runs
+K3 (with the megakernels off, all of them do). The vocoder runs K4/K5/K6
+when use_vocoder_kernels is set.
 """
 
 from __future__ import annotations
@@ -30,7 +35,9 @@ from .io import safetensors_io
 from .models import generate as gen_mod
 from .models import prompt as prompt_mod
 from .models import vocoder as voc
-from .ops.quant import apply_int8_quantization
+from .ops.cuda.cp_megakernel import build_cp_kernel_params
+from .ops.cuda.talker_megakernel import build_talker_kernel_params
+from .ops.quant import KERNEL_SHARED_LINS, apply_int8_quantization, kernel_w8r_view
 from .utils.device import resolve_device
 from .utils.postprocess import sanitize_samples
 
@@ -50,15 +57,18 @@ class AudioChunk:
 
 @dataclass(frozen=True)
 class Qwen3TTSPipelineConfiguration:
-    """Pipeline options. The megakernels (K1, K2) and the mixed 4/6-bit mode
-    (K7) are not ported: asking for them raises NotImplementedError."""
+    """Pipeline options. use_talker_megakernel / use_cp_megakernel: None
+    means on when the pipeline's device is CUDA (the JAX package turns them
+    on for its accelerator); True on the CPU runs their plain versions;
+    False runs the layer-by-layer path with K3. The mixed 4/6-bit mode (K7)
+    is not ported: asking for it raises NotImplementedError."""
 
     runtime_quantization_mode: str = "int8"
     default_temperature: float = 0.85
     default_max_tokens: int = 2400
     default_streaming_chunk_size: int = 12
-    use_cp_megakernel: bool = False
-    use_talker_megakernel: bool = False
+    use_cp_megakernel: bool | None = None
+    use_talker_megakernel: bool | None = None
     use_vocoder_kernels: bool = True
 
 
@@ -67,24 +77,46 @@ class Qwen3TTSError(Exception):
 
 
 def _check_configuration(pc: Qwen3TTSPipelineConfiguration) -> None:
-    if pc.use_talker_megakernel:
-        raise NotImplementedError(
-            "use_talker_megakernel: the talker megakernel (K1, "
-            "talker_megakernel.py::_talker_kernel) is not ported yet; ROADMAP "
-            "Queue 2, item K1"
-        )
-    if pc.use_cp_megakernel:
-        raise NotImplementedError(
-            "use_cp_megakernel: the code-predictor megakernel (K2, "
-            "cp_megakernel.py::_cp_kernel) is not ported yet; ROADMAP Queue 2, "
-            "item K2"
-        )
     if pc.runtime_quantization_mode != "int8":
         raise NotImplementedError(
             f"runtime_quantization_mode={pc.runtime_quantization_mode!r}: packed "
             "sub-byte weights need kernel K7 (quant_matmul.py::_kernel); ROADMAP "
             "Queue 2, item K7"
         )
+
+
+_TALKER_SHARED = ("layers", "codec_head")
+_CP_SHARED = ("layers", "lm_head", "codec_embedding")
+
+
+def _quantize(tree: dict, shared: tuple[str, ...]) -> dict:
+    """int8 group-64 quantization of every subtree not shared with a
+    megakernel (the shared ones stay dense until the kernel tree is built)."""
+    sub = apply_int8_quantization({k: v for k, v in tree.items() if k not in shared})
+    return {**tree, **sub}
+
+
+def _drop_shared(tree: dict, tables: tuple[str, ...]) -> dict:
+    """The tree without the dense entries the kernel tree replaces. Entries
+    with a bias stay (the kernels carry none)."""
+    lay = {k: v for k, v in tree["layers"].items()
+           if not (k in dict(KERNEL_SHARED_LINS) and "b" not in v)}
+    out = {k: v for k, v in tree.items() if not (k in tables and "b" not in v)}
+    out["layers"] = lay
+    return out
+
+
+def _attach_views(tree: dict, tables: dict[str, str]) -> dict:
+    """Fill the dropped entries with `w8r` views of tree["kernel"]'s tensors
+    (the same storage: no copy)."""
+    k = tree["kernel"]
+    lay = dict(tree["layers"])
+    for name, pre in KERNEL_SHARED_LINS:
+        lay.setdefault(name, kernel_w8r_view(k, pre))
+    out = dict(tree, layers=lay)
+    for name, pre in tables.items():
+        out.setdefault(name, kernel_w8r_view(k, pre))
+    return out
 
 
 class Qwen3TTSPipeline:
@@ -117,9 +149,41 @@ class Qwen3TTSPipeline:
         params, cp_params = ckpt.load_talker_checkpoint(
             safetensors_io.load_file(weights_path), self.config, dtype=np.float32
         )
-        self.params = to_torch(apply_int8_quantization(params), self.device, dtype)
-        self.cp_params = to_torch(apply_int8_quantization(cp_params), self.device, dtype)
+        pc = self.pipeline_config
+        on_cuda = self.device.type == "cuda"
+        use_talker_k = on_cuda if pc.use_talker_megakernel is None else pc.use_talker_megakernel
+        use_cp_k = on_cuda if pc.use_cp_megakernel is None else pc.use_cp_megakernel
+        # Buffer sharing: the subtrees a megakernel streams are not group-
+        # quantized; the kernel tree is built from the dense weights, the
+        # dense host copies are dropped before upload, and prefill reads the
+        # kernel's tensors through `w8r` views.
+        if use_talker_k:
+            tkp = build_talker_kernel_params(params, self.config)
+            params = _drop_shared(_quantize(params, _TALKER_SHARED), ("codec_head",))
+        else:
+            params = _quantize(params, ())
+        if use_cp_k:
+            ckp = build_cp_kernel_params(cp_params, self.config.code_predictor_config)
+            cp_params = _drop_shared(_quantize(cp_params, _CP_SHARED),
+                                     ("lm_head", "codec_embedding"))
+        else:
+            cp_params = _quantize(cp_params, ())
+        self.params = to_torch(params, self.device, dtype)
+        self.cp_params = to_torch(cp_params, self.device, dtype)
         del params, cp_params
+        # the kernel trees keep their exact format: int8 weights, fp32 rest
+        if use_talker_k:
+            self.params["kernel"] = to_torch(tkp, self.device, torch.float32)
+            self.params = _attach_views(self.params, {"codec_head": "ch"})
+        if use_cp_k:
+            kern = to_torch(ckp, self.device, torch.float32)
+            for part in ("q", "s", "m"):  # unprojected: emb and embr are one table
+                if ckp[f"embr_{part}"] is ckp[f"emb_{part}"]:
+                    kern[f"embr_{part}"] = kern[f"emb_{part}"]
+            self.cp_params["kernel"] = kern
+            # the raw (unprojected) tables: the layer path projects itself
+            self.cp_params = _attach_views(
+                self.cp_params, {"lm_head": "head", "codec_embedding": "embr"})
 
         st_cfg_path = os.path.join(st_dir, "config.json")
         st_weights_path = os.path.join(st_dir, "model.safetensors")
@@ -141,6 +205,32 @@ class Qwen3TTSPipeline:
                 self.vocoder_params, dec_cfg, dtype
             )
         self._samples_per_frame = dec_cfg.total_upsample
+
+    def model_resident_bytes(self) -> int:
+        """Device bytes of the resident model (talker, code predictor,
+        vocoder), counting each storage once: the megakernel trees and their
+        `w8r` views share theirs."""
+        seen: set[tuple[str, int]] = set()
+        total = 0
+
+        def walk(node):
+            nonlocal total
+            if isinstance(node, dict):
+                for v in node.values():
+                    walk(v)
+            elif isinstance(node, (list, tuple)):
+                for v in node:
+                    walk(v)
+            elif isinstance(node, torch.Tensor):
+                st = node.untyped_storage()
+                key = (str(node.device), st.data_ptr())
+                if key not in seen:
+                    seen.add(key)
+                    total += st.nbytes()
+
+        for tree in (self.params, self.cp_params, self.vocoder_params):
+            walk(tree)
+        return total
 
     @property
     def available_speakers(self) -> list[str]:
