@@ -12,8 +12,10 @@ non-zero):
                 frame, with and without the repetition penalty) and K2g
                 (Gumbel sampler: same draws as its plain version, chi-square
                 of 100k draws) at 0.6B
-  kernels     - K3, K4, K5, K6 against their plain PyTorch versions at the
-                0.6B main path's shapes, fp32 and bf16, with times and bounds
+  kernels     - K3, K4, K5, K6 and K7 against their plain PyTorch versions at
+                the 0.6B main path's shapes, fp32 and bf16, with times and
+                bounds (K7 at 4 and 6 bits on the mixed mode's linears, and
+                one 2-, 3- and 8-bit shape, each at M = 1 and M = 300)
   pipeline    - the default configuration (megakernels on): a random-weight
                 0.6B model dir, Qwen3TTSPipeline in bf16, generate() and
                 generate_stream(); checks the audio and that K1, K2, K2g,
@@ -22,6 +24,19 @@ non-zero):
                 over the generated frames; the kernel vocoder against the
                 plain one; a profile of the frame loop
   k3-pipeline - the same with the megakernels off (every linear on K3)
+  mixed-pipeline - runtime_quantization_mode="mixed_4_6" with the
+                megakernels off on the same dir: every talker and
+                code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle; a
+                decode chunk with no host sync, a profile of the frame loop,
+                and the prefill logits with K7 against those with its plain
+                version swapped in, in a bf16 and an fp32 model
+  prequant-pipeline - a 0.6B dir pre-quantized to 4 bits, group 64 (MLX's
+                layout, written by write_prequantized_model_dir), in the
+                default configuration: K1, K2, K2g, K7 (text projection),
+                K4-K6 ran and K3 did not; a decode chunk with no host sync
+                (packed embedding gathers in the frame loop); K1/K2
+                teacher-forced on the kernel trees built from packed weights; a
+                profile of the frame loop
 The line before the last is {"kernels": [...]} and the last is
 {"ok": true, "device": {...}}.
 
@@ -76,6 +91,8 @@ KERNELS = {
                  "qwen3_tts_tpu/ops/pallas/cp_megakernel.py:217"),
     "gumbel_sample": ("qwen3_tts_tpu_torch/csrc/cp_frame.cu",
                       "qwen3_tts_tpu/ops/pallas/cp_megakernel.py:185"),
+    "packed_matmul": ("qwen3_tts_tpu_torch/csrc/packed_matmul.cu",
+                      "qwen3_tts_tpu/ops/pallas/quant_matmul.py:93"),
 }
 TEXT = ("The quick brown fox jumps over the lazy dog, and then it runs far "
         "away into the quiet green forest.")
@@ -97,6 +114,7 @@ def modules() -> dict:
     from qwen3_tts_tpu_torch.ops.cuda import (
         cp_megakernel,
         gumbel_sampler,
+        packed_matmul,
         pretransformer_kernel,
         quant_matmul,
         talker_megakernel,
@@ -107,7 +125,7 @@ def modules() -> dict:
     return {"int8_matmul": quant_matmul, "pre_transformer": pretransformer_kernel,
             "upsample_stage": upsample_kernel, "residual_units": vocoder_kernels,
             "talker_step": talker_megakernel, "cp_frame": cp_megakernel,
-            "gumbel_sample": gumbel_sampler}
+            "gumbel_sample": gumbel_sampler, "packed_matmul": packed_matmul}
 
 
 def rel_rms(got, ref) -> float:
@@ -227,6 +245,7 @@ def phase_kernels(rec: Record) -> None:
 
     from qwen3_tts_tpu_torch.config import TokenizerDecoderConfig
     from qwen3_tts_tpu_torch.ops.cuda import (
+        packed_matmul as pm,
         pretransformer_kernel as ptk,
         quant_matmul as qm,
         upsample_kernel as upk,
@@ -259,6 +278,33 @@ def phase_kernels(rec: Record) -> None:
                             time_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b), it),
                             time_ms(lambda: qm.int8_matmul_plain(x, w8, s, b), it),
                             nb, {dtype: 2 * m * k * o})
+
+    # K7 at the mixed 4/6-bit mode's 0.6B linears (4-bit gate/up, o, down;
+    # 6-bit qkv and codec head: the main path's, timed) and one 2-, 3- and
+    # 8-bit shape (text fc1, cp lm_head, down), group 64; random bit
+    # patterns are valid packed values at every width
+    packed = [(4, 1024, 6144, True), (4, 2048, 1024, True), (4, 3072, 1024, True),
+              (6, 1024, 4096, True), (6, 1024, 3072, True),
+              (2, 2048, 2048, False), (3, 1024, 2048, False), (8, 3072, 1024, False)]
+    for bits, k, o, main in packed:
+        wq = torch.randint(-2 ** 31, 2 ** 31, (o, k * bits // 32), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.int32)
+        s = torch.rand(o, k // 64, generator=gen, device=dev) * (2e-2 / 2 ** bits)
+        b = randn(o, k // 64, scale=0.01)
+        for dtype in ("float32", "bfloat16"):
+            for m in (1, 300):
+                x = randn(m, k).to(getattr(torch, dtype))
+                got = pm.packed_matmul_kernel(x, wq, s, b, bits, 64)
+                ref = pm.packed_matmul_plain(x, wq, s, b, bits, 64)
+                it = 50 if m == 1 else 10
+                err = rel_rms(got.float(), ref.float())
+                if not bool(torch.isfinite(got.float()).all()):
+                    err = float("nan")
+                rec.add("packed_matmul", f"{bits}-bit M={m} K={k} O={o}", dtype, err,
+                        float((got.float() - ref.float()).abs().max()), TOL[dtype],
+                        time_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64), it),
+                        time_ms(lambda: pm.packed_matmul_plain(x, wq, s, b, bits, 64), it),
+                        nbytes(x, wq, s, b, got), {dtype: 2 * m * k * o}, timed=main)
 
     cfg = TokenizerDecoderConfig()
     dense = random_vocoder_params(cfg, seed=0, device=dev)
@@ -592,7 +638,7 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
     log(f"[{label}] load {load_s:.2f} s, generate {gen_s:.2f} s for {dur:.2f} s of audio, "
         f"RTF {metrics['rtf']:.3f}; generate_stream: {len(chunks)} chunks over {pos} frames, "
         f"first audio {first:.2f} s, RTF {metrics['stream_rtf']:.3f}; resident "
-        f"{metrics['resident_bytes']} bytes ({card}, bf16, int8 weights)")
+        f"{metrics['resident_bytes']} bytes ({card}, bf16)")
     log(f"[{label}] kernel launches during this run: {launches}")
     missing = [k for k in need if not launches[k]]
     if missing or any(launches[k] for k in idle):
@@ -622,7 +668,7 @@ def no_sync_chunk(pl, label: str) -> None:
         "no host sync inside the chunk")
 
 
-def teacher_forced(pl, card: str) -> None:
+def teacher_forced(pl, card: str, label: str = "pipeline") -> None:
     """K1 + K2 against their plain versions, teacher-forced over the frames
     generate() makes: both decode the same frames from their own states;
     the talker logits after each step are compared. The two rings drift
@@ -656,12 +702,41 @@ def teacher_forced(pl, card: str) -> None:
         flips += int(torch.argmax(sk["logits"]) != torch.argmax(sp["logits"]))
     torch.cuda.synchronize()
     worst = max(errs)
-    log(f"[pipeline] teacher-forced over {len(frames)} generated frames, kernels vs plain "
+    log(f"[{label}] teacher-forced over {len(frames)} generated frames, kernels vs plain "
         f"versions (bf16 model): talker logits rel RMS max {worst:.3e} mean "
         f"{float(np.mean(errs)):.3e} (tol {TOL_W8A8['bfloat16']:g}), code-0 argmax flips "
         f"{flips}/{len(frames)}; {time.perf_counter() - t0:.1f} s ({card})")
     if not worst <= TOL_W8A8["bfloat16"]:
         raise SystemExit("the megakernel decode disagrees with its plain version")
+
+
+def mixed_prefill_check(pl, card: str, dtype: str) -> None:
+    """Prompt assembly and prefill with K7 against the same with K7's plain
+    version swapped into the dispatch: talker logits within TOL[dtype] (the
+    model's dtype)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
+
+    def logits():
+        return gen_mod.prefill(pl.params, pl._assemble(TEXT, "aiden"), pl.config)["logits"]
+
+    got = logits()
+    kernel = pm.packed_matmul_kernel
+    pm.packed_matmul_kernel = pm.packed_matmul_plain
+    try:
+        ref = logits()
+    finally:
+        pm.packed_matmul_kernel = kernel
+    torch.cuda.synchronize()
+    err = rel_rms(got, ref)
+    log(f"[mixed-pipeline] prefill logits, K7 vs its plain version in every packed linear "
+        f"({dtype} model): rel RMS {err:.3e} (tol {TOL[dtype]:g}), argmax "
+        f"{'agrees' if int(torch.argmax(got)) == int(torch.argmax(ref)) else 'differs'} "
+        f"({card})")
+    if not err <= TOL[dtype]:
+        raise SystemExit("prefill with K7 disagrees with its plain version")
 
 
 def vocoder_check(pl) -> None:
@@ -737,7 +812,7 @@ def main() -> int:
         return 2
 
     import qwen3_tts_tpu_torch as qt
-    from qwen3_tts_tpu_torch.testing import write_model_dir
+    from qwen3_tts_tpu_torch.testing import write_model_dir, write_prequantized_model_dir
 
     t_start = time.perf_counter()
     card = card_line()
@@ -754,7 +829,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s -> {_build.build_dir()}")
 
     rec = Record()
-    results = {}
+    results, launches = {}, {}
+    vocoder = ("pre_transformer", "upsample_stage", "residual_units")
+    megakernels = ("talker_step", "cp_frame", "gumbel_sample")
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         talker_dense, cp_dense, _ = write_model_dir(
@@ -765,8 +842,9 @@ def main() -> int:
         del talker_dense, cp_dense
         phase_kernels(rec)
 
-        pl, launches, results["megakernels"] = run_pipeline(
-            card, d, "pipeline", None, need=tuple(KERNELS), idle=())
+        pl, launches["megakernels"], results["megakernels"] = run_pipeline(
+            card, d, "pipeline", None, need=megakernels + ("int8_matmul",) + vocoder,
+            idle=("packed_matmul",))
         no_sync_chunk(pl, "pipeline")
         teacher_forced(pl, card)
         vocoder_check(pl)
@@ -776,12 +854,43 @@ def main() -> int:
 
         off = qt.Qwen3TTSPipelineConfiguration(use_talker_megakernel=False,
                                                use_cp_megakernel=False)
-        pl, k3_launches, results["k3"] = run_pipeline(
-            card, d, "k3-pipeline", off,
-            need=("int8_matmul", "pre_transformer", "upsample_stage", "residual_units"),
-            idle=("talker_step", "cp_frame", "gumbel_sample"))
+        pl, launches["k3_path"], results["k3"] = run_pipeline(
+            card, d, "k3-pipeline", off, need=("int8_matmul",) + vocoder,
+            idle=megakernels + ("packed_matmul",))
         no_sync_chunk(pl, "k3-pipeline")
         profile_frames(pl, "k3-pipeline", card, steps=4)
+        del pl
+        torch.cuda.empty_cache()
+
+        mixed = qt.Qwen3TTSPipelineConfiguration(runtime_quantization_mode="mixed_4_6",
+                                                 use_talker_megakernel=False,
+                                                 use_cp_megakernel=False)
+        pl, launches["mixed"], results["mixed"] = run_pipeline(
+            card, d, "mixed-pipeline", mixed, need=("packed_matmul",) + vocoder,
+            idle=megakernels + ("int8_matmul",))
+        no_sync_chunk(pl, "mixed-pipeline")
+        profile_frames(pl, "mixed-pipeline", card, steps=4)
+        mixed_prefill_check(pl, card, "bfloat16")
+        del pl
+        torch.cuda.empty_cache()
+        # the same in an fp32 model, where no output rounds to bf16
+        pl = qt.Qwen3TTSPipeline(d, mixed, device="cuda", dtype=torch.float32)
+        mixed_prefill_check(pl, card, "float32")
+        del pl
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_prequantized_model_dir(d, qt.Qwen3TTSConfig.standard(),
+                                     qt.TokenizerDecoderConfig(), widths=(4,), group_size=64)
+        log(f"[prequant-pipeline] wrote a random-weight 0.6B model dir pre-quantized to 4 bits, "
+            f"group 64, in {time.perf_counter() - t0:.1f} s")
+        pl, launches["prequant"], results["prequant"] = run_pipeline(
+            card, d, "prequant-pipeline", None,
+            need=megakernels + ("packed_matmul",) + vocoder, idle=("int8_matmul",))
+        no_sync_chunk(pl, "prequant-pipeline")
+        teacher_forced(pl, card, "prequant-pipeline")
+        profile_frames(pl, "prequant-pipeline", card)
         del pl
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
@@ -790,12 +899,14 @@ def main() -> int:
     for name, (src, replaces) in KERNELS.items():
         r = rec.rows[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": launches[name], "max_abs_err": r["max_abs_err"],
+               "launches": launches["megakernels"][name], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
                "library_ms": None}
-        if name in ("int8_matmul", "pre_transformer", "upsample_stage", "residual_units"):
-            row["launches_k3_path"] = k3_launches[name]
+        if name == "packed_matmul":  # this slice's paths
+            row["launches"] = launches["prequant"][name] + launches["mixed"][name]
+        for path in ("k3_path", "mixed", "prequant"):
+            row[f"launches_{path}"] = launches[path][name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

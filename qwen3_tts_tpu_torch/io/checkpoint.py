@@ -1,12 +1,18 @@
 """Checkpoint loading: reference-format safetensors -> numpy param trees.
 
-A jax-free copy of the dense and dequantize-on-load paths of
-qwen3_tts_tpu/io/checkpoint.py (tests pin the trees equal):
+A jax-free copy of qwen3_tts_tpu/io/checkpoint.py (tests pin the trees
+equal):
 
   - talker / code-predictor key remap ("talker.", "code_predictor.model.",
     "model." prefixes; "audio_decoder." keys dropped)
   - dequantize-on-load of packed (.weight uint + .scales [+ .biases])
     triples when the checkpoint is not declared pre-quantized
+  - keep-packed load of a pre-quantized checkpoint (config.quantization
+    set, as MLX's 4/6/8-bit checkpoints declare): uint32 linears and tables
+    stay packed {"wq", "scales"[, "biases"]} for K7 and the gather-dequant
+    lookups; bits and group size are derived per tensor from its shapes, so
+    mixed widths load too (fused or stacked entries of different widths
+    fall back to their exact dense values)
   - vocoder sanitizer: prefix rules, encoder keys dropped, RVQ codebooks
     rebuilt from EMA stats, conv kernels re-laid channels-last
 
@@ -16,10 +22,6 @@ Layouts (the JAX package's, kept so the two trees compare like with like):
   linear / embedding                   -> unchanged ([out, in] / [V, D])
 Per-layer weights are stacked on a leading layer axis; q/k/v and gate/up
 are fused on the output axis.
-
-Pre-quantized checkpoints (config.quantization set) keep packed `wq`
-weights, which need the packed-bit matmul kernel this port does not have
-yet; loading one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ def remap_talker_keys(weights: dict) -> dict:
 
 
 def _derived_bits(wq, scales, settings: QuantizationSettings) -> tuple[int, int]:
+    """Per-tensor (bits, group_size) from the packed shapes: mixed-width
+    checkpoints store different widths per tensor, so settings only give
+    the group-size hint."""
     entry = {"wq": wq, "scales": scales}
     if settings.enabled and settings.group_size != 64:
         entry[f"g{settings.group_size}"] = np.zeros((0,), np.int8)
@@ -83,44 +88,110 @@ def dequantize_weights(weights: dict, settings: QuantizationSettings) -> dict:
     return {k: v for k, v in out.items() if not (k.endswith(".scales") or k.endswith(".biases"))}
 
 
+def _group_marker(settings: QuantizationSettings) -> dict:
+    """The zero-size "g<N>" key that records a group size other than 64 for
+    derive_packed_dims ((words, groups) alone is ambiguous)."""
+    if settings.enabled and settings.group_size != 64:
+        return {f"g{settings.group_size}": np.zeros((0,), np.int8)}
+    return {}
+
+
 def _linear_entry(w: dict, prefix: str, dtype) -> dict:
-    entry = {"w": np.asarray(w[f"{prefix}.weight"], dtype)}
+    """Dense {"w"[, "b"]} or packed {"wq", "scales"[, "biases"][, "b"]}."""
+    weight = w[f"{prefix}.weight"]
+    entry: dict = {}
+    if weight.dtype == np.uint32:
+        entry["wq"] = weight
+        entry["scales"] = np.asarray(w[f"{prefix}.scales"], dtype)
+        if f"{prefix}.biases" in w:
+            entry["biases"] = np.asarray(w[f"{prefix}.biases"], dtype)
+    else:
+        entry["w"] = np.asarray(weight, dtype)
     if f"{prefix}.bias" in w:
         entry["b"] = np.asarray(w[f"{prefix}.bias"], dtype)
     return entry
 
 
+def _entry_dense(entry: dict, dtype) -> np.ndarray:
+    """One linear / table entry as a dense weight."""
+    if "w" in entry:
+        return np.asarray(entry["w"], dtype)
+    bits, gs, _ = derive_packed_dims(entry)
+    return dequantize_np(entry["wq"], entry["scales"], entry.get("biases"),
+                         bits=bits, group_size=gs, dtype=dtype)
+
+
 def _fuse_out(*entries: dict) -> dict:
-    """Fuse dense linear params along the output axis (q/k/v, gate/up)."""
-    return {k: np.concatenate([e[k] for e in entries], axis=0) for k in entries[0]}
+    """Fuse linear params along the output axis (q/k/v, gate/up); packed rows
+    are independent, so packed entries of one width fuse as they are. Entries
+    of different storage or width fuse their exact dense values."""
+    keys = entries[0].keys()
+    mismatched = any(e.keys() != keys for e in entries[1:]) or any(
+        np.asarray(e[k]).shape[1:] != np.asarray(entries[0][k]).shape[1:]
+        for e in entries[1:] for k in (keys & e.keys()) if k != "b"
+    )
+    if mismatched:
+        out = {"w": np.concatenate([_entry_dense(e, np.float32) for e in entries], axis=0)}
+        if all("b" in e for e in entries):
+            out["b"] = np.concatenate([np.asarray(e["b"], np.float32) for e in entries], axis=0)
+        return out
+    return {k: np.concatenate([e[k] for e in entries], axis=0) for k in keys}
 
 
-def _stack(entries: list[dict]) -> dict:
-    return {k: np.stack([e[k] for e in entries]) for k in entries[0]}
+def _stack(entries: list[dict], dtype=np.float32) -> dict:
+    """Stack param dicts on a new leading axis; entries that differ in keys,
+    shapes or types (layers quantized at different widths) stack their
+    exact dense values instead."""
+    keys = entries[0].keys()
+    homogeneous = all(e.keys() == keys for e in entries) and all(
+        np.asarray(e[k]).shape == np.asarray(entries[0][k]).shape
+        and np.asarray(e[k]).dtype == np.asarray(entries[0][k]).dtype
+        for e in entries for k in keys
+    )
+    if homogeneous:
+        return {k: np.stack([e[k] for e in entries]) for k in keys}
+    out = {"w": np.stack([_entry_dense(e, dtype) for e in entries])}
+    if all("b" in e for e in entries):
+        out["b"] = np.stack([np.asarray(e["b"], dtype) for e in entries])
+    return out
+
+
+def _embed_entry(w: dict, prefix: str, settings: QuantizationSettings, dtype,
+                 keep_packed: bool) -> dict:
+    """A table: packed storage kept when `keep_packed` (lookups gather and
+    dequantize rows), else dense (a checkpoint that is not pre-quantized has
+    had its packed triples dequantized already)."""
+    weight = w[f"{prefix}.weight"]
+    if keep_packed and weight.dtype == np.uint32 and f"{prefix}.scales" in w:
+        entry = {"wq": weight, "scales": np.asarray(w[f"{prefix}.scales"], dtype)}
+        if f"{prefix}.biases" in w:
+            entry["biases"] = np.asarray(w[f"{prefix}.biases"], dtype)
+        return {**entry, **_group_marker(settings)}
+    return {"w": np.asarray(weight, dtype)}
 
 
 def load_talker_checkpoint(
     weights: dict, config: Qwen3TTSConfig, dtype=np.float32
 ) -> tuple[dict, dict]:
-    """Assemble dense (talker_params, cp_params) numpy trees."""
-    if config.quantization is not None:
-        raise NotImplementedError(
-            "pre-quantized checkpoints keep packed `wq` weights, which need "
-            "the packed-bit matmul kernel (ROADMAP: kernel K7, "
-            "quant_matmul.py::_kernel); dequantize the checkpoint first"
-        )
+    """Assemble (talker_params, cp_params) numpy trees: packed linears and
+    tables kept for a pre-quantized checkpoint, dense otherwise."""
     w = remap_talker_keys(weights)
     settings = config.quantization_settings
-    dq = QuantizationSettings(
-        enabled=True,
-        bits=settings.bits if settings.enabled else 8,
-        group_size=settings.group_size if settings.enabled else 64,
-    )
-    w = dequantize_weights(w, dq)
+    keep_packed = config.quantization is not None
+    if not keep_packed:
+        dq = QuantizationSettings(
+            enabled=True,
+            bits=settings.bits if settings.enabled else 8,
+            group_size=settings.group_size if settings.enabled else 64,
+        )
+        w = dequantize_weights(w, dq)
 
-    lin = lambda p: _linear_entry(w, p, dtype)  # noqa: E731
+    def lin(p: str) -> dict:
+        entry = _linear_entry(w, p, dtype)
+        return {**entry, **_group_marker(settings)} if "wq" in entry else entry
+
     norm = lambda p: {"w": np.asarray(w[f"{p}.weight"], dtype)}  # noqa: E731
-    table = lambda p: {"w": np.asarray(w[f"{p}.weight"], dtype)}  # noqa: E731
+    table = lambda p: _embed_entry(w, p, settings, dtype, keep_packed)  # noqa: E731
 
     def layers(pre: str, n: int) -> dict:
         def field(fmt, builder):

@@ -105,6 +105,7 @@ class GemmArgs(ctypes.Structure):
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "qt_int8_matmul": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    "qt_packed_matmul": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P],
     "qt_pt_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_pt_rmsnorm": [_P, _P, _P, _I, _I, _F, _P],
     "qt_pt_rope": [_P, _P, _I, _I, _I, _I, _P],

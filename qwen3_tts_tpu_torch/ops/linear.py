@@ -1,32 +1,31 @@
-"""Functional linear layer and table lookups over dense or int8 params.
+"""Functional linear layer and table lookups over dense or quantized params.
 
 Param dict conventions (as in qwen3_tts_tpu/ops/linear.py):
-  dense: {"w": [out, in], optional "b": [out]}
-  int8:  {"w8": uint8 [out, in], "scales"/"biases": fp32 [out, in/64],
-          optional "b": [out]}
-  w8r:   {"w8r": int8 [out, in], "s"/"m": fp32 [1, out]}, the megakernels'
-         rowwise int8 weights (ops/quant.py), read here as views of the
-         kernel trees so prefill holds no second copy
+  dense:  {"w": [out, in], optional "b": [out]}
+  int8:   {"w8": uint8 [out, in], "scales"/"biases": fp32 [out, in/64],
+           optional "b": [out]}
+  packed: {"wq": uint32 [out, in*bits/32], "scales": fp32 [out, in/G],
+           optional "biases" [out, in/G], optional "b": [out]}: MLX's
+           bitstream (ops/quant.py), bits and G derived from the shapes; an
+           optional zero-size "g<N>" marker key records a group size N != 64
+  w8r:    {"w8r": int8 [out, in], "s"/"m": fp32 [1, out]}, the megakernels'
+           rowwise int8 weights (ops/quant.py), read here as views of the
+           kernel trees so prefill holds no second copy
 Stacked table sets carry a leading group axis. int8 linears and stacked
-lm_heads go through the K3 kernel (ops/cuda/quant_matmul.py) on the card;
-`w8r` entries are plain large products (torch.matmul on the int8 values cast
-to x's dtype, with the dequant folded into the output: y*s + m*sum(x)).
-Packed `wq` entries need the packed-bit kernel K7, which this port does not
-have yet: they raise NotImplementedError.
+lm_heads go through the K3 kernel (ops/cuda/quant_matmul.py) on the card,
+packed ones through K7 (ops/cuda/packed_matmul.py); `w8r` entries are plain
+large products (torch.matmul on the int8 values cast to x's dtype, with the
+dequant folded into the output: y*s + m*sum(x)). Table lookups gather the
+requested rows and dequantize only those, in torch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .cuda.packed_matmul import quantized_matmul
 from .cuda.quant_matmul import int8_matmul
-
-
-def _unported(params: dict) -> None:
-    raise NotImplementedError(
-        f"weight storage {sorted(params)} is not ported: packed `wq` weights "
-        "need kernel K7 (ROADMAP)"
-    )
+from .quant import dequantize_torch, derive_packed_dims
 
 
 def _w8r_linear(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -44,10 +43,10 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
         y = _w8r_linear(params, x)
     elif "w8" in params:
         y = int8_matmul(x, params)
-    elif "w" in params:
-        y = x @ params["w"].to(x.dtype).T
+    elif "wq" in params:
+        y = quantized_matmul(x, params)
     else:
-        _unported(params)
+        y = x @ params["w"].to(x.dtype).T
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
@@ -68,18 +67,32 @@ def _rows(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return t.index_select(0, ids.reshape(-1)).reshape(*ids.shape, *t.shape[1:])
 
 
+def _packed_rows(params: dict, ids: torch.Tensor) -> torch.Tensor:
+    """Rows `ids` of a packed table, dequantized in fp32."""
+    bits, gs, in_dim = derive_packed_dims(params)
+    wq = params["wq"].view(torch.int32)  # index_select on 32-bit words
+    rows = dequantize_torch(
+        _rows(wq, ids).reshape(-1, wq.shape[-1]),
+        _rows(params["scales"], ids).reshape(-1, params["scales"].shape[-1]),
+        (_rows(params["biases"], ids).reshape(-1, params["biases"].shape[-1])
+         if "biases" in params else None),
+        bits, gs,
+    )
+    return rows.reshape(*ids.shape, in_dim)
+
+
 def embedding_lookup(params: dict, ids: torch.Tensor, dtype=None) -> torch.Tensor:
-    """Rows `ids` of a table; int8 tables dequantize only those rows."""
+    """Rows `ids` of a table; quantized tables dequantize only those rows."""
     if "w8r" in params:
         rows = _rows(params["w8r"], ids).float()
         out = (rows * _rows(params["s"][0], ids).float()[..., None]
                + _rows(params["m"][0], ids).float()[..., None])
     elif "w8" in params:
         out = _dequant_rows(*(_rows(params[k], ids) for k in ("w8", "scales", "biases")))
-    elif "w" in params:
-        out = _rows(params["w"], ids)
+    elif "wq" in params:
+        out = _packed_rows(params, ids)
     else:
-        _unported(params)
+        out = _rows(params["w"], ids)
     return out.to(dtype) if dtype is not None else out
 
 
@@ -90,14 +103,13 @@ def table_row(entry: dict, k_idx: int, code: torch.Tensor, dtype=None) -> torch.
 
 def table_matmul(entry: dict, k_idx: int, x: torch.Tensor) -> torch.Tensor:
     """x @ table[k_idx].T for a stacked table set (the code predictor's
-    per-group lm_heads); int8 tables run K3 on the group's rows."""
+    per-group lm_heads); int8 tables run K3 and packed tables K7 on the
+    group's rows."""
+    group = {k: v[k_idx] for k, v in entry.items()}
     if "w8r" in entry:
-        return _w8r_linear({k: v[k_idx] for k, v in entry.items()}, x)
+        return _w8r_linear(group, x)
     if "w8" in entry:
-        return int8_matmul(x, {
-            "w8": entry["w8"][k_idx], "scales": entry["scales"][k_idx],
-            "biases": entry["biases"][k_idx],
-        })
-    if "w" in entry:
-        return x @ entry["w"][k_idx].to(x.dtype).T
-    _unported(entry)
+        return int8_matmul(x, group)
+    if "wq" in entry:
+        return quantized_matmul(x, group)
+    return x @ group["w"].to(x.dtype).T

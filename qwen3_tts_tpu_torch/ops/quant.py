@@ -10,10 +10,17 @@ the rowwise signed int8 scheme of the megakernels K1/K2 (W8A8),
   w[o, i] ~= s[o] * q[o, i] + m[o],  q int8 in [-127, 127],
   y[o] = sx * s[o] * (xq . q[o]) + m[o] * (sx * sum(xq)),
 
-with x ~= sx * xq quantized symmetrically per row, and the packed-bit
-unpack/dequant that dequantize-on-load checkpoints need. The TPU
-kernel-layout repack (`w8_kl` lane permutation) is not copied: the CUDA
-kernels read plain [out, in] rows.
+with x ~= sx * xq quantized symmetrically per row, and MLX's packed-bit
+group-affine scheme of K7 (pre-quantized checkpoints and the mixed 4/6-bit
+runtime mode),
+
+  w[o, i] ~= scales[o, i // G] * q[o, i] + biases[o, i // G],
+  q an unsigned `bits`-bit value, bits in {2, 3, 4, 6, 8},
+
+stored per output row as a little-endian bitstream of uint32 words (3- and
+6-bit values cross word boundaries). The TPU kernel-layout repacks (`w8_kl`,
+`wq_kl` lane permutations) are not copied: the CUDA kernels read plain
+[out, in] rows.
 """
 
 from __future__ import annotations
@@ -31,6 +38,25 @@ def _check(bits: int, group_size: int, in_dim: int) -> None:
         raise ValueError(f"in_dim {in_dim} not divisible by group_size {group_size}")
     if (in_dim * bits) % 32 != 0:
         raise ValueError(f"in_dim {in_dim} * bits {bits} must be a multiple of 32")
+
+
+def pack_bits_np(q: np.ndarray, bits: int) -> np.ndarray:
+    """Unsigned values [..., N] -> little-endian bitstream of uint32 words
+    [..., N * bits / 32]."""
+    q = np.asarray(q, dtype=np.uint32)
+    n = q.shape[-1]
+    assert (n * bits) % 32 == 0
+    if 32 % bits == 0:
+        per = 32 // bits
+        vals = q.reshape(*q.shape[:-1], n // per, per).astype(np.uint64)
+        shifts = (np.arange(per, dtype=np.uint64) * bits)[None, :]
+        return (vals << shifts).sum(axis=-1).astype(np.uint32)
+    shifts = np.arange(bits, dtype=np.uint32)
+    bits_arr = ((q[..., None] >> shifts) & 1).astype(np.uint8)  # [..., N, bits]
+    flat = bits_arr.reshape(*q.shape[:-1], n * bits)
+    words = flat.reshape(*q.shape[:-1], n * bits // 32, 32)
+    weights = (np.uint32(1) << np.arange(32, dtype=np.uint32))
+    return (words.astype(np.uint32) * weights).sum(axis=-1).astype(np.uint32)
 
 
 def unpack_bits_np(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
@@ -73,6 +99,66 @@ def dequantize_np(
         )
     w = scales[..., None] * q + biases[..., None]
     return w.reshape(out_dim, in_dim).astype(dtype)
+
+
+def quantize_np(
+    w: np.ndarray, bits: int = 4, group_size: int = 64
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Affine-quantize a float weight [out, in] -> (packed uint32, scales,
+    biases), scales / biases fp32 [out, in / group]; q = round((w - min) /
+    scale)."""
+    w = np.asarray(w, dtype=np.float32)
+    out_dim, in_dim = w.shape
+    _check(bits, group_size, in_dim)
+    g = w.reshape(out_dim, in_dim // group_size, group_size)
+    w_min = g.min(axis=-1)
+    w_max = g.max(axis=-1)
+    denom = float(2**bits - 1)
+    scales = (w_max - w_min) / denom
+    scales = np.where(scales <= 1e-12, 1.0, scales).astype(np.float32)
+    biases = w_min.astype(np.float32)
+    q = np.clip(np.round((g - biases[..., None]) / scales[..., None]), 0, denom)
+    q = q.astype(np.uint32).reshape(out_dim, in_dim)
+    return pack_bits_np(q, bits), scales, biases
+
+
+def unpack_bits_torch(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    """Little-endian 32-bit bitstream [..., W] (uint32 or int32 words) ->
+    int64 values [..., n], on packed's device. Values that cross a word
+    boundary (3 and 6 bits) take their high bits from the next word."""
+    words = packed.view(torch.int32).long() & 0xFFFFFFFF  # logical shifts below
+    mask = (1 << bits) - 1
+    if 32 % bits == 0:
+        per = 32 // bits
+        shifts = torch.arange(per, device=packed.device) * bits
+        vals = (words[..., None] >> shifts) & mask
+        return vals.reshape(*packed.shape[:-1], packed.shape[-1] * per)[..., :n]
+    bit_lo = torch.arange(n, device=packed.device) * bits
+    word_lo = bit_lo // 32
+    off = bit_lo % 32
+    lo = words.index_select(-1, word_lo) >> off
+    word_hi = torch.clamp(word_lo + 1, max=packed.shape[-1] - 1)
+    hi = torch.where(off + bits > 32, words.index_select(-1, word_hi) << (32 - off), 0)
+    return (lo | hi) & mask
+
+
+def dequantize_torch(
+    packed: torch.Tensor,
+    scales: torch.Tensor,
+    biases: torch.Tensor | None,
+    bits: int,
+    group_size: int,
+) -> torch.Tensor:
+    """Packed rows [out, in * bits / 32] -> fp32 [out, in], as s * q + b in
+    fp32; missing biases count as zero."""
+    out_dim = packed.shape[0]
+    in_dim = packed.shape[1] * 32 // bits
+    q = unpack_bits_torch(packed, bits, in_dim).float()
+    q = q.reshape(out_dim, in_dim // group_size, group_size)
+    w = scales.float()[..., None] * q
+    if biases is not None:
+        w = w + biases.float()[..., None]
+    return w.reshape(out_dim, in_dim)
 
 
 def derive_packed_dims(entry: dict) -> tuple[int, int, int]:
@@ -159,6 +245,61 @@ def apply_int8_quantization(params: dict, group_size: int = 64) -> dict:
             if np.asarray(out[name]["w"]).shape[-1] % group_size:
                 continue
             out[name] = _quantize_int8_entry(out[name], group_size)
+    return out
+
+
+# The mixed 4/6-bit scheme: these entries at 6 bits, every other quantizable
+# one at 4, group 64
+_SIX_BIT_NAMES = ("qkv_proj", "codec_head", "lm_head")
+
+
+def _quantize_linear_entry(entry: dict, bits: int, group_size: int) -> dict:
+    """Dense {"w"[, "b"]} -> packed {"wq", "scales", "biases"[, "b"]}, leading
+    (stacked) axes kept."""
+    w = np.asarray(entry["w"], np.float32)
+    lead = w.shape[:-2]
+    w2 = w.reshape(-1, w.shape[-2], w.shape[-1])
+    packed, scales, biases = zip(*(quantize_np(wi, bits, group_size) for wi in w2))
+    out = {
+        "wq": np.stack(packed).reshape(*lead, w.shape[-2], -1),
+        "scales": np.stack(scales).reshape(*lead, w.shape[-2], -1),
+        "biases": np.stack(biases).reshape(*lead, w.shape[-2], -1),
+    }
+    if "b" in entry:
+        out["b"] = entry["b"]
+    return out
+
+
+def apply_mixed_quantization(params: dict, group_size: int = 64) -> dict:
+    """The reference's runtime mixed quantization of a talker / code-predictor
+    tree: 6-bit qkv projections and heads, 4-bit everything else, the
+    embedding tables and stacked cp tables included; entries whose input
+    width does not pack stay dense (as in the JAX package)."""
+    linear_paths = {
+        "text_projection": ("fc1", "fc2"),
+        "layers": ("qkv_proj", "o_proj", "gateup_proj", "down_proj"),
+    }
+
+    def quantized(entry: dict, name: str) -> dict:
+        bits = 6 if name in _SIX_BIT_NAMES else 4
+        in_dim = np.asarray(entry["w"]).shape[-1]
+        if in_dim % group_size or (in_dim * bits) % 32:
+            return entry
+        return _quantize_linear_entry(entry, bits, group_size)
+
+    out = dict(params)
+    for group, names in linear_paths.items():
+        if group not in out:
+            continue
+        sub = dict(out[group])
+        for name in names:
+            if name in sub and "w" in sub[name]:
+                sub[name] = quantized(sub[name], name)
+        out[group] = sub
+    for name in ("codec_head", "small_to_mtp_projection",
+                 "text_embedding", "codec_embedding", "lm_head"):
+        if name in out and "w" in out[name]:
+            out[name] = quantized(out[name], name)
     return out
 
 

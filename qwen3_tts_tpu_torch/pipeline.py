@@ -8,14 +8,19 @@ Model directory layout (the reference's):
   tokenizer.json         BPE tokenizer
   speech_tokenizer/      vocoder config.json + model.safetensors
 
-Loading quantizes the talker and code predictor for int8 runtime
-(runtime_quantization_mode="int8"). With the megakernels on (the default on
-CUDA) the decode loop runs K1 per talker step and K2 per code-predictor
-frame, and their rowwise int8 trees are the only resident copy of the
-layer weights, the codec head and the cp tables: prefill reads them through
-`w8r` views. Every other linear and table is int8 group-64 affine and runs
-K3 (with the megakernels off, all of them do). The vocoder runs K4/K5/K6
-when use_vocoder_kernels is set.
+Loading mirrors the JAX pipeline's rules. A checkpoint declared pre-quantized
+(config.json `quantization`, as MLX's 4/6/8-bit checkpoints) keeps its
+packed linears and tables, which run K7 and gather-dequant lookups. Otherwise
+the talker and code predictor are quantized at load
+(apply_runtime_quantization): runtime_quantization_mode="int8" gives int8
+group-64 entries on K3, any other mode the reference's mixed 4/6-bit packed
+entries on K7. With the megakernels on (the default on CUDA) the decode loop
+runs K1 per talker step and K2 per code-predictor frame, built from the
+loaded weights; for a pre-quantized checkpoint or the int8 mode their
+rowwise int8 trees are the only resident copy of the layer weights, the
+codec head and the cp tables (prefill reads them through `w8r` views),
+while in the mixed mode the packed copies stay resident beside them. The
+vocoder runs K4/K5/K6 when use_vocoder_kernels is set.
 """
 
 from __future__ import annotations
@@ -37,7 +42,12 @@ from .models import prompt as prompt_mod
 from .models import vocoder as voc
 from .ops.cuda.cp_megakernel import build_cp_kernel_params
 from .ops.cuda.talker_megakernel import build_talker_kernel_params
-from .ops.quant import KERNEL_SHARED_LINS, apply_int8_quantization, kernel_w8r_view
+from .ops.quant import (
+    KERNEL_SHARED_LINS,
+    apply_int8_quantization,
+    apply_mixed_quantization,
+    kernel_w8r_view,
+)
 from .utils.device import resolve_device
 from .utils.postprocess import sanitize_samples
 
@@ -57,12 +67,15 @@ class AudioChunk:
 
 @dataclass(frozen=True)
 class Qwen3TTSPipelineConfiguration:
-    """Pipeline options. use_talker_megakernel / use_cp_megakernel: None
-    means on when the pipeline's device is CUDA (the JAX package turns them
-    on for its accelerator); True on the CPU runs their plain versions;
-    False runs the layer-by-layer path with K3. The mixed 4/6-bit mode (K7)
-    is not ported: asking for it raises NotImplementedError."""
+    """Pipeline options. apply_runtime_quantization: quantize a checkpoint
+    that is not pre-quantized at load, in runtime_quantization_mode "int8"
+    (K3) or any other mode, which is the mixed 4/6-bit scheme (K7).
+    use_talker_megakernel / use_cp_megakernel: None means on when the
+    pipeline's device is CUDA (the JAX package turns them on for its
+    accelerator); True on the CPU runs their plain versions; False runs the
+    layer-by-layer path."""
 
+    apply_runtime_quantization: bool = True
     runtime_quantization_mode: str = "int8"
     default_temperature: float = 0.85
     default_max_tokens: int = 2400
@@ -76,29 +89,22 @@ class Qwen3TTSError(Exception):
     """Load-time errors."""
 
 
-def _check_configuration(pc: Qwen3TTSPipelineConfiguration) -> None:
-    if pc.runtime_quantization_mode != "int8":
-        raise NotImplementedError(
-            f"runtime_quantization_mode={pc.runtime_quantization_mode!r}: packed "
-            "sub-byte weights need kernel K7 (quant_matmul.py::_kernel); ROADMAP "
-            "Queue 2, item K7"
-        )
-
-
 _TALKER_SHARED = ("layers", "codec_head")
 _CP_SHARED = ("layers", "lm_head", "codec_embedding")
 
 
-def _quantize(tree: dict, shared: tuple[str, ...]) -> dict:
-    """int8 group-64 quantization of every subtree not shared with a
-    megakernel (the shared ones stay dense until the kernel tree is built)."""
-    sub = apply_int8_quantization({k: v for k, v in tree.items() if k not in shared})
+def _quantize(tree: dict, shared: tuple[str, ...], int8_mode: bool) -> dict:
+    """Runtime quantization (int8 group-64, or mixed 4/6-bit packed) of every
+    subtree not shared with a megakernel (the shared ones are dropped once
+    the kernel tree is built)."""
+    sub = {k: v for k, v in tree.items() if k not in shared}
+    sub = apply_int8_quantization(sub) if int8_mode else apply_mixed_quantization(sub)
     return {**tree, **sub}
 
 
 def _drop_shared(tree: dict, tables: tuple[str, ...]) -> dict:
-    """The tree without the dense entries the kernel tree replaces. Entries
-    with a bias stay (the kernels carry none)."""
+    """The tree without the entries the kernel tree replaces. Entries with a
+    bias stay (the kernels carry none)."""
     lay = {k: v for k, v in tree["layers"].items()
            if not (k in dict(KERNEL_SHARED_LINS) and "b" not in v)}
     out = {k: v for k, v in tree.items() if not (k in tables and "b" not in v)}
@@ -131,7 +137,6 @@ class Qwen3TTSPipeline:
         device: str | torch.device | None = None,
     ):
         self.pipeline_config = configuration or Qwen3TTSPipelineConfiguration()
-        _check_configuration(self.pipeline_config)
         self.device = resolve_device(device)
         self._dtype = dtype
         model_path = os.fspath(model_path)
@@ -153,37 +158,45 @@ class Qwen3TTSPipeline:
         on_cuda = self.device.type == "cuda"
         use_talker_k = on_cuda if pc.use_talker_megakernel is None else pc.use_talker_megakernel
         use_cp_k = on_cuda if pc.use_cp_megakernel is None else pc.use_cp_megakernel
-        # Buffer sharing: the subtrees a megakernel streams are not group-
-        # quantized; the kernel tree is built from the dense weights, the
-        # dense host copies are dropped before upload, and prefill reads the
-        # kernel's tensors through `w8r` views.
+        prequant = self.config.quantization is not None
+        rq = pc.apply_runtime_quantization and not prequant
+        int8_mode = pc.runtime_quantization_mode == "int8"
+        # Buffer sharing: the subtrees a megakernel streams are not runtime-
+        # quantized; the kernel tree is built from the loaded weights (packed
+        # ones included), those host copies are dropped before upload, and
+        # prefill reads the kernel's tensors through `w8r` views. Off in the
+        # mixed mode, whose packed copies stay resident beside the kernels.
+        share_talker = use_talker_k and (prequant or (rq and int8_mode))
+        share_cp = use_cp_k and (prequant or (rq and int8_mode))
         if use_talker_k:
             tkp = build_talker_kernel_params(params, self.config)
-            params = _drop_shared(_quantize(params, _TALKER_SHARED), ("codec_head",))
-        else:
-            params = _quantize(params, ())
         if use_cp_k:
             ckp = build_cp_kernel_params(cp_params, self.config.code_predictor_config)
-            cp_params = _drop_shared(_quantize(cp_params, _CP_SHARED),
-                                     ("lm_head", "codec_embedding"))
-        else:
-            cp_params = _quantize(cp_params, ())
+        if rq:
+            params = _quantize(params, _TALKER_SHARED if share_talker else (), int8_mode)
+            cp_params = _quantize(cp_params, _CP_SHARED if share_cp else (), int8_mode)
+        if share_talker:
+            params = _drop_shared(params, ("codec_head",))
+        if share_cp:
+            cp_params = _drop_shared(cp_params, ("lm_head", "codec_embedding"))
         self.params = to_torch(params, self.device, dtype)
         self.cp_params = to_torch(cp_params, self.device, dtype)
         del params, cp_params
         # the kernel trees keep their exact format: int8 weights, fp32 rest
         if use_talker_k:
             self.params["kernel"] = to_torch(tkp, self.device, torch.float32)
-            self.params = _attach_views(self.params, {"codec_head": "ch"})
+            if share_talker:
+                self.params = _attach_views(self.params, {"codec_head": "ch"})
         if use_cp_k:
             kern = to_torch(ckp, self.device, torch.float32)
             for part in ("q", "s", "m"):  # unprojected: emb and embr are one table
                 if ckp[f"embr_{part}"] is ckp[f"emb_{part}"]:
                     kern[f"embr_{part}"] = kern[f"emb_{part}"]
             self.cp_params["kernel"] = kern
-            # the raw (unprojected) tables: the layer path projects itself
-            self.cp_params = _attach_views(
-                self.cp_params, {"lm_head": "head", "codec_embedding": "embr"})
+            if share_cp:
+                # the raw (unprojected) tables: the layer path projects itself
+                self.cp_params = _attach_views(
+                    self.cp_params, {"lm_head": "head", "codec_embedding": "embr"})
 
         st_cfg_path = os.path.join(st_dir, "config.json")
         st_weights_path = os.path.join(st_dir, "model.safetensors")

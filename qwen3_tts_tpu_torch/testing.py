@@ -22,6 +22,7 @@ from .config import (
     TokenizerDecoderConfig,
 )
 from .io import safetensors_io
+from .ops.quant import quantize_np
 
 
 def tiny_talker_config(**overrides) -> Qwen3TTSConfig:
@@ -523,3 +524,49 @@ def write_model_dir(
         os.path.join(path, "speech_tokenizer", "model.safetensors"),
     )
     return params, cp_params, voc
+
+
+def write_prequantized_model_dir(
+    path,
+    config: Qwen3TTSConfig,
+    decoder_config: TokenizerDecoderConfig,
+    *,
+    widths=(4,),
+    group_size: int = 64,
+    seed: int = 0,
+):
+    """write_model_dir, then every eligible talker `.weight` (2-D, not a norm,
+    input width a multiple of `group_size`) re-stored packed in MLX's layout
+    (uint32 `.weight`, fp32 `.scales` / `.biases`), cycling through `widths`
+    (a width that does not pack the row falls back to 4), and config.json
+    declares `"quantization": {"bits": widths[0], "group_size": ...}`, so the
+    loaders keep the linears packed. Returns write_model_dir's dense trees."""
+    path = os.fspath(path)
+    ret = write_model_dir(path, config, decoder_config, seed=seed)
+    main_path = os.path.join(path, "model.safetensors")
+    weights = safetensors_io.load_file(main_path)
+    out = {}
+    i = 0
+    for key in sorted(weights):
+        a = np.asarray(weights[key])
+        if (key.startswith("talker.") and key.endswith(".weight") and a.ndim == 2
+                and "norm" not in key and a.shape[-1] % group_size == 0):
+            bits = widths[i % len(widths)]
+            i += 1
+            if (a.shape[-1] * bits) % 32:
+                bits = 4
+            packed, scales, biases = quantize_np(a.astype(np.float32), bits, group_size)
+            stem = key[: -len(".weight")]
+            out[key] = packed
+            out[f"{stem}.scales"] = scales
+            out[f"{stem}.biases"] = biases
+        else:  # stored as write_model_dir stored it (bf16 is exact in fp32)
+            out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+    safetensors_io.save_file(out, main_path)
+    cfg_path = os.path.join(path, "config.json")
+    with open(cfg_path, encoding="utf-8") as f:
+        raw = json.load(f)
+    raw["quantization"] = {"bits": widths[0], "group_size": group_size}
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(raw, f)
+    return ret

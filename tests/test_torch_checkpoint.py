@@ -1,6 +1,6 @@
 """The port's copy of checkpoint assembly pinned to the JAX package's: the
-talker tree (dense, and packed weights dequantized on load), the refusal of
-pre-quantized checkpoints, and the vocoder tree with its export layouts."""
+talker tree (dense, and packed weights dequantized on load), a pre-quantized
+checkpoint loaded packed, and the vocoder tree with its export layouts."""
 
 import numpy as np
 import pytest
@@ -51,10 +51,22 @@ def test_talker_checkpoint_pinned(prequantized_weights):
 
 
 def test_prequantized_checkpoint_refused():
+    """Pre-quantized checkpoints were refused before K7; now one loads with
+    its packed codec head kept packed, as the JAX package loads it."""
     raw = jtesting.config_to_json_dict(jtesting.tiny_talker_config())
     raw["quantization"] = {"bits": 4, "group_size": 64}
-    with pytest.raises(NotImplementedError, match="K7"):
-        tckpt.load_talker_checkpoint({}, tconfig.Qwen3TTSConfig.from_json(raw))
+    cfg_t = tconfig.Qwen3TTSConfig.from_json(raw)
+    tp = ttesting.random_host_talker_params(cfg_t, 0)
+    w = jtesting.export_talker_checkpoint(tp, ttesting.random_host_cp_params(cfg_t, 1),
+                                          jconfig.Qwen3TTSConfig.from_json(raw))
+    key = "talker.model.codec_head.weight"
+    w[key], w["talker.model.codec_head.scales"], w["talker.model.codec_head.biases"] = (
+        quantize_np(w[key], 4, 64))
+    tt = tckpt.load_talker_checkpoint(dict(w), cfg_t)
+    assert sorted(tt[0]["codec_head"]) == ["biases", "scales", "wq"]
+    np.testing.assert_array_equal(tt[0]["codec_head"]["wq"], w[key])
+    jt = jckpt.load_talker_checkpoint(dict(w), jconfig.Qwen3TTSConfig.from_json(raw))
+    assert_trees_equal(tt, jt)
 
 
 def test_vocoder_checkpoint_pinned():

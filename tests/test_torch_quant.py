@@ -1,6 +1,7 @@
 """The port's numpy int8 quantizers pinned equal to the JAX package's, and
 the int8 linear's dispatch: group rows of a stacked table, the plain version
-for a CPU tensor (the kernel refuses one), packed weights refused."""
+for a CPU tensor (the kernel refuses one); a packed `wq` linear (K7's plain
+version on the CPU) gives the dense weight's answer."""
 
 import numpy as np
 import pytest
@@ -80,6 +81,13 @@ def test_cpu_tensor_takes_the_plain_version_and_kernel_refuses_it():
 
 
 def test_packed_weights_are_refused():
-    with pytest.raises(NotImplementedError, match="K7"):
-        tlinear.linear({"wq": torch.zeros(4, 2, dtype=torch.int32),
-                        "scales": torch.zeros(4, 1)}, torch.ones(1, 64))
+    """Packed weights were refused before K7; now a packed linear is held
+    against its dense dequantized weight."""
+    rng = np.random.default_rng(12)
+    w = (rng.standard_normal((4, 64)) * 0.05).astype(np.float32)
+    packed, s, b = jquant.quantize_np(w, 4, 64)
+    x = rng.standard_normal((1, 64)).astype(np.float32)
+    dense = jquant.dequantize_np(packed, s, b, 4, 64)
+    got = tlinear.linear({"wq": torch.from_numpy(packed), "scales": torch.from_numpy(s),
+                          "biases": torch.from_numpy(b)}, torch.from_numpy(x))
+    close(got, x @ dense.T)
