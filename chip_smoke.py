@@ -12,10 +12,16 @@ non-zero):
                 frame, with and without the repetition penalty) and K2g
                 (Gumbel sampler: same draws as its plain version, chi-square
                 of 100k draws) at 0.6B
-  kernels     - K3, K4, K5, K6 and K7 against their plain PyTorch versions at
-                the 0.6B main path's shapes, fp32 and bf16, with times and
-                bounds (K7 at 4 and 6 bits on the mixed mode's linears, and
-                one 2-, 3- and 8-bit shape, each at M = 1 and M = 300)
+  kernels     - K3, K4, K4a, K5, K6 and K7 against their plain PyTorch
+                versions at the 0.6B main path's shapes, fp32 and bf16, with
+                times and bounds (K7 at 4 and 6 bits on the mixed mode's
+                linears, and one 2-, 3- and 8-bit shape, each at M = 1 and
+                M = 300; K4a at T = 26 and 110, B = 1 and 2, also against K4
+                on the same weights, and at T = 300, whose q/k/v do not fit
+                in shared memory)
+  fused-pretransformer - K4a's own entry point, pre_transformer_fused, on
+                the 0.6B vocoder's pre-transformer (no pipeline path runs
+                it, in this port or in the JAX package): launch counts
   pipeline    - the default configuration (megakernels on): a random-weight
                 0.6B model dir, Qwen3TTSPipeline in bf16, generate() and
                 generate_stream(); checks the audio and that K1, K2, K2g,
@@ -37,6 +43,15 @@ non-zero):
                 (packed embedding gathers in the frame loop); K1/K2
                 teacher-forced on the kernel trees built from packed weights; a
                 profile of the frame loop
+  modes-pipeline - a 0.6B dir with the speaker and audio encoders at full
+                width, default configuration: generate_voice_design,
+                generate_custom_voice, a streamed VoiceDesign run, a speaker
+                embedding and reference codes of a 5 s clip it generated
+                (held against the port's CPU run in fp32), generate with that
+                embedding, generate_icl, generate_batch on three sentences,
+                generate_to_file, warmup; RTF per mode, encoder times,
+                resident bytes, and K1, K2, K2g, K3, K4, K5, K6 launched,
+                K4a and K7 not
 The line before the last is {"kernels": [...]} and the last is
 {"ok": true, "device": {...}}.
 
@@ -93,6 +108,8 @@ KERNELS = {
                       "qwen3_tts_tpu/ops/pallas/cp_megakernel.py:185"),
     "packed_matmul": ("qwen3_tts_tpu_torch/csrc/packed_matmul.cu",
                       "qwen3_tts_tpu/ops/pallas/quant_matmul.py:93"),
+    "pre_transformer_fused": ("qwen3_tts_tpu_torch/csrc/pretransformer.cu",
+                              "qwen3_tts_tpu/ops/pallas/pretransformer_kernel.py:51"),
 }
 TEXT = ("The quick brown fox jumps over the lazy dog, and then it runs far "
         "away into the quiet green forest.")
@@ -110,7 +127,8 @@ def card_line() -> str:
     return out[0]
 
 
-def modules() -> dict:
+def counters() -> dict:
+    """kernel name -> (wrapper module, name of its launch count)."""
     from qwen3_tts_tpu_torch.ops.cuda import (
         cp_megakernel,
         gumbel_sampler,
@@ -122,10 +140,32 @@ def modules() -> dict:
         vocoder_kernels,
     )
 
-    return {"int8_matmul": quant_matmul, "pre_transformer": pretransformer_kernel,
-            "upsample_stage": upsample_kernel, "residual_units": vocoder_kernels,
-            "talker_step": talker_megakernel, "cp_frame": cp_megakernel,
-            "gumbel_sample": gumbel_sampler, "packed_matmul": packed_matmul}
+    return {"int8_matmul": (quant_matmul, "launches"),
+            "pre_transformer": (pretransformer_kernel, "launches"),
+            "upsample_stage": (upsample_kernel, "launches"),
+            "residual_units": (vocoder_kernels, "launches"),
+            "talker_step": (talker_megakernel, "launches"),
+            "cp_frame": (cp_megakernel, "launches"),
+            "gumbel_sample": (gumbel_sampler, "launches"),
+            "packed_matmul": (packed_matmul, "launches"),
+            "pre_transformer_fused": (pretransformer_kernel, "fused_launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+
+
+def check_counts(label: str, launches: dict, need, idle) -> None:
+    log(f"[{label}] kernel launches during this run: {launches}")
+    missing = [k for k in need if not launches[k]]
+    if missing or any(launches[k] for k in idle):
+        raise SystemExit(f"[{label}] kernels not launched: {missing}, or launched where "
+                         f"they should not be: {[k for k in idle if launches[k]]}")
 
 
 def rel_rms(got, ref) -> float:
@@ -226,14 +266,15 @@ class Record:
             row["t_bytes"] += nb / HBM
             row["t_ops"] += sum(n / RATE[k] for k, n in ops.items())
 
-    def compare(self, name, label, dtype, got, ref, timing, plain_timing, nb, ops):
+    def compare(self, name, label, dtype, got, ref, timing, plain_timing, nb, ops, timed=True):
         import torch
 
         err = rel_rms(got.float(), ref.float())
         abs_err = float((got.float() - ref.float()).abs().max())
         if not bool(torch.isfinite(got.float()).all()):
             err = float("nan")
-        self.add(name, label, dtype, err, abs_err, TOL[dtype], timing, plain_timing, nb, ops)
+        self.add(name, label, dtype, err, abs_err, TOL[dtype], timing, plain_timing, nb, ops,
+                 timed=timed)
 
 
 def weight_numel(kp: dict, names) -> int:
@@ -322,6 +363,29 @@ def phase_kernels(rec: Record) -> None:
                         time_ms(lambda: ptk.pre_transformer_kernel(kp, x, **kw), 5),
                         time_ms(lambda: ptk.pre_transformer_plain(kp, x, **kw), 5),
                         nbytes(x, got, *kp.values()), {dtype: 2 * t * mats + attn})
+
+        # K4a: the same function over the per-head layout, at the shapes of
+        # the vocoder's stream window and blocking rows, B = 1 (timed) and
+        # 2; against its plain version and against K4 on the same weights
+        fp = ptk.build_pretransformer_fused_params(dense["pre_transformer"], cfg, dt)
+        fmats = weight_numel(fp, ("wi", "wq", "wk", "wv", "wo", "wg", "wu", "wd", "wout"))
+        for b, t in ((1, 26), (1, 110), (2, 26), (2, 110), (1, 300)):
+            x = randn(b, t, cfg.latent_dim).to(dt)
+            kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
+            got = ptk.pre_transformer_fused_kernel(fp, x, **kw)
+            k4 = ptk.pre_transformer_kernel(kp, x, **kw)
+            vs_k4 = rel_rms(got.float(), k4.float())
+            attn = 2 * fp["wq"].shape[0] * cfg.num_attention_heads * cfg.head_dim * t * (t + 1)
+            rec.compare("pre_transformer_fused", f"B={b} T={t}", dtype, got,
+                        ptk.pre_transformer_fused_plain(fp, x, **kw),
+                        time_ms(lambda: ptk.pre_transformer_fused_kernel(fp, x, **kw), 5),
+                        time_ms(lambda: ptk.pre_transformer_fused_plain(fp, x, **kw), 5),
+                        nbytes(x, got, *fp.values()), {dtype: b * (2 * t * fmats + attn)},
+                        timed=b == 1 and t != 300)
+            log(f"[kernels] pre_transformer_fused B={b} T={t} {dtype}: against K4 on the same "
+                f"weights rel_rms={vs_k4:.3e} (tol {TOL[dtype]:g})")
+            if not vs_k4 <= TOL[dtype]:
+                raise SystemExit("K4a disagrees with K4 on the same weights")
 
         stages = dense["upsample"]
         for t in (26, 110):
@@ -587,12 +651,10 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
     import qwen3_tts_tpu_torch as qt
     from qwen3_tts_tpu_torch.models import generate as gen_mod
 
-    mods = modules()
     spf = qt.TokenizerDecoderConfig().total_upsample
     kept, filt = _counting(gen_mod)
     try:
-        for m in mods.values():
-            m.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pl = qt.Qwen3TTSPipeline(d, configuration, device="cuda")
@@ -629,7 +691,7 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
             pos = b
         if pos != sum(kept) or not chunks[-1].is_final or len(chunks[-1].samples):
             raise SystemExit(f"stream covered {pos} frames of {sum(kept)}")
-        launches = {k: m.launches for k, m in mods.items()}
+        launches = read_counts()
     finally:
         gen_mod.filter_valid_frames = filt
     metrics = {"load_s": load_s, "generate_s": gen_s, "rtf": gen_s / dur,
@@ -639,11 +701,7 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
         f"RTF {metrics['rtf']:.3f}; generate_stream: {len(chunks)} chunks over {pos} frames, "
         f"first audio {first:.2f} s, RTF {metrics['stream_rtf']:.3f}; resident "
         f"{metrics['resident_bytes']} bytes ({card}, bf16)")
-    log(f"[{label}] kernel launches during this run: {launches}")
-    missing = [k for k in need if not launches[k]]
-    if missing or any(launches[k] for k in idle):
-        raise SystemExit(f"[{label}] kernels not launched: {missing}, or launched where "
-                         f"they should not be: {[k for k in idle if launches[k]]}")
+    check_counts(label, launches, need, idle)
     return pl, launches, metrics
 
 
@@ -798,6 +856,189 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> None:
         log(f"[{label}]   {ms:.3f} ms/frame in {n} launches/frame: {key}")
 
 
+def phase_fused_path(card: str) -> dict:
+    """K4a through its entry point, pre_transformer_fused, at the 0.6B
+    vocoder's width (bf16 weights, fp32 residual input as the vocoder gives
+    it): a stream window, a blocking row and two blocking rows. Counts are
+    set to 0 just before and read just after."""
+    import torch
+
+    from qwen3_tts_tpu_torch.config import TokenizerDecoderConfig
+    from qwen3_tts_tpu_torch.ops.cuda import pretransformer_kernel as ptk
+    from qwen3_tts_tpu_torch.testing import random_vocoder_params
+
+    dev = torch.device("cuda")
+    cfg = TokenizerDecoderConfig()
+    fp = ptk.build_pretransformer_fused_params(
+        random_vocoder_params(cfg, seed=1, device=dev)["pre_transformer"], cfg, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xs = [torch.randn(b, t, cfg.latent_dim, generator=gen, device=dev)
+          for b, t in ((1, 26), (1, 110), (2, 110))]
+    kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [ptk.pre_transformer_fused(fp, x, **kw) for x in xs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    ok = all(o.shape == x.shape and bool(torch.isfinite(o).all()) for o, x in zip(outs, xs))
+    log(f"[fused-pretransformer] pre_transformer_fused on [1, 26], [1, 110], [2, 110] x "
+        f"{cfg.latent_dim}: {wall * 1e3:.1f} ms in all, outputs finite and shaped "
+        f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise SystemExit("pre_transformer_fused output is wrong")
+    check_counts("fused-pretransformer", launches, need=("pre_transformer_fused",),
+                 idle=tuple(k for k in KERNELS if k != "pre_transformer_fused"))
+    return launches
+
+
+LONG = ("The first sentence of this long text talks about the weather, which was calm and "
+        "bright all through the quiet morning hours before anyone in the small town woke "
+        "up. The second sentence moves on to the busy market, where people bought bread and "
+        "fruit and talked with their neighbours for a long while in the sun. The third "
+        "sentence ends the story as the sun goes down slowly over the hills and the children "
+        "walk home along the river for their supper.")
+
+
+def phase_modes(card: str, d: str):
+    """Every generation mode on the default configuration of a 0.6B dir
+    with the speaker and audio encoders; returns (launch counts over the
+    whole phase, metrics)."""
+    import torch
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.frontend.chunker import chunk_text
+    from qwen3_tts_tpu_torch.io import safetensors_io
+    from qwen3_tts_tpu_torch.io.wav import parse_wav
+    from qwen3_tts_tpu_torch.models import audio_encoder as aenc
+    from qwen3_tts_tpu_torch.models import speaker_encoder as spk
+    from qwen3_tts_tpu_torch.pipeline import resident_bytes
+
+    label = "modes-pipeline"
+    m: dict = {}
+    spf = 0  # samples per frame, from the loaded pipeline
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def check_audio(name, audio, frames=None):
+        ok = (audio.dtype == np.float32 and len(audio) > 0 and bool(np.isfinite(audio).all())
+              and (frames is None or len(audio) == frames * spf))
+        if not ok:
+            raise SystemExit(f"[{label}] {name}: {len(audio)} samples, not the audio expected")
+
+    def rtf(name, fn, frames=None):
+        audio, secs = timed(fn)
+        check_audio(name, audio, frames)
+        m[f"{name}_rtf"] = secs / (len(audio) / 24000)
+        log(f"[{label}] {name}: {secs:.2f} s for {len(audio) / 24000:.2f} s of audio, "
+            f"RTF {m[f'{name}_rtf']:.3f}")
+        return audio
+
+    reset_counts()
+    pl, m["load_s"] = timed(lambda: qt.Qwen3TTSPipeline(d, device="cuda"))
+    spf = pl._samples_per_frame
+    if not (pl.supports_voice_cloning and pl.supports_icl):
+        raise SystemExit(f"[{label}] the encoders did not load")
+    m["resident_bytes"] = pl.model_resident_bytes()
+    enc_bytes = resident_bytes(pl.speaker_encoder.params, pl.audio_encoder.params)
+    log(f"[{label}] load {m['load_s']:.2f} s; resident {m['resident_bytes']} bytes, of which "
+        f"the encoders {enc_bytes} (fp32)")
+    design = rtf("voice_design", lambda: pl.generate_voice_design(
+        TEXT, "A warm, low narrator voice.", max_tokens=96, seed=0), 96)
+    rtf("custom_voice", lambda: pl.generate_custom_voice(
+        TEXT, "aiden", "Speak cheerfully.", max_tokens=96, seed=0), 96)
+
+    t0 = time.perf_counter()
+    first, n = None, 0
+    for ch in pl.generate_stream_voice_design(TEXT, "A warm, low narrator voice.",
+                                              max_tokens=96, seed=0):
+        if first is None and len(ch.samples):
+            first = time.perf_counter() - t0
+        if len(ch.samples):
+            check_audio("stream chunk", ch.samples, ch.token_range[1] - ch.token_range[0])
+        n += len(ch.samples)
+    m["stream_first_audio_s"], m["stream_rtf"] = first, (time.perf_counter() - t0) / (n / 24000)
+    log(f"[{label}] streamed VoiceDesign: first audio {first:.2f} s, RTF {m['stream_rtf']:.3f}")
+
+    ref = design[: 5 * 24000]  # a 5 s clip of generated speech
+    emb, m["speaker_encoder_s"] = timed(lambda: pl.extract_speaker_embedding(ref))
+    codes, m["audio_encoder_s"] = timed(lambda: pl.encode_reference_audio(ref))
+    log(f"[{label}] 5 s clip: speaker embedding {emb.shape} in {m['speaker_encoder_s']:.3f} s, "
+        f"reference codes {len(codes)} x {len(codes[0])} in {m['audio_encoder_s']:.3f} s")
+    rtf("speaker_embedding", lambda: pl.generate(TEXT, speaker_embedding=emb, max_tokens=96,
+                                                 seed=0), 96)
+    rtf("icl", lambda: pl.generate_icl(TEXT, "The words of the reference clip.", codes,
+                                       max_tokens=96, seed=0), 96)
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    chunks = chunk_text(LONG)
+    kept, filt = _counting(gen_mod)  # valid frames of each chunk
+    try:
+        long_audio = rtf("generate_batch", lambda: pl.generate_batch(LONG, "aiden", seed=0))
+        batch_frames = list(kept)
+        kept.clear()
+        with tempfile.TemporaryDirectory() as out_dir:
+            path = f"{out_dir}/long.wav"
+            count, secs = timed(lambda: pl.generate_to_file(LONG, path, "aiden", seed=0))
+            with open(path, "rb") as f:
+                samples, rate, channels = parse_wav(f.read())
+        file_frames = list(kept)
+    finally:
+        gen_mod.filter_valid_frames = filt
+    # chunks of at most 600 frames, joined by 480-sample crossfades
+    want = sum(batch_frames) * spf - 480 * (sum(1 for n in batch_frames if n) - 1)
+    log(f"[{label}] generate_batch: {len(chunks)} chunks of {batch_frames} frames")
+    if len(chunks) != 3 or len(long_audio) != want or max(batch_frames) > 600:
+        raise SystemExit(f"[{label}] generate_batch: {len(chunks)} chunks, {len(long_audio)} "
+                         f"samples, expected 3 and {want}")
+    if (count != sum(file_frames) * spf or len(samples) != count
+            or (rate, channels) != (24000, 1)):
+        raise SystemExit(f"[{label}] generate_to_file wrote {count} samples / {len(samples)}")
+    m["generate_to_file_rtf"] = secs / (count / 24000)
+    log(f"[{label}] generate_to_file: {count} samples in {secs:.2f} s, RTF "
+        f"{m['generate_to_file_rtf']:.3f}")
+    _, m["warmup_s"] = timed(pl.warmup)
+    log(f"[{label}] warmup: {m['warmup_s']:.2f} s")
+    launches = read_counts()
+    check_counts(label, launches, need=("talker_step", "cp_frame", "gumbel_sample",
+                                        "int8_matmul", "pre_transformer", "upsample_stage",
+                                        "residual_units"),
+                 idle=("packed_matmul", "pre_transformer_fused"))
+
+    # the card's encoders (fp32, TF32 off) against the port's CPU run
+    t0 = time.perf_counter()
+    spk_cpu = spk.SpeakerEncoder.from_weights(
+        {k: v for k, v in safetensors_io.load_file(f"{d}/model.safetensors").items()
+         if k.startswith("speaker_encoder.")}, device="cpu")
+    st = safetensors_io.load_file(f"{d}/speech_tokenizer/model.safetensors")
+    enc_cpu = aenc.AudioEncoder.from_weights({k: v for k, v in st.items() if "encoder." in k},
+                                             pl.speech_config, device="cpu")
+    emb_err = rel_rms(torch.from_numpy(emb), torch.from_numpy(spk_cpu.extract_embedding(ref)))
+    x = torch.from_numpy(ref)[None]
+    with torch.no_grad():
+        h_card = aenc.encode_hidden(pl.audio_encoder.params, x.cuda(), pl.audio_encoder.cfg)
+        h_cpu = aenc.encode_hidden(enc_cpu.params, x, enc_cpu.cfg)
+    h_err = rel_rms(h_card.cpu(), h_cpu)
+    cpu_codes = enc_cpu.encode(ref)
+    same = float((np.stack(codes) == cpu_codes).mean())
+    log(f"[{label}] card vs CPU (fp32): speaker embedding rel_rms={emb_err:.3e}, encoder "
+        f"hidden states rel_rms={h_err:.3e} (tol 1e-4 each), reference codes equal in "
+        f"{100 * same:.2f}% (need 99%) ({time.perf_counter() - t0:.1f} s)")
+    if not (emb_err <= 1e-4 and h_err <= 1e-4 and same >= 0.99):
+        raise SystemExit("the encoders on the card disagree with their CPU run")
+    m["codes_equal"] = same
+    del pl
+    torch.cuda.empty_cache()
+    return launches, m
+
+
 def main() -> int:
     import torch
 
@@ -841,6 +1082,7 @@ def main() -> int:
         phase_megakernels(rec, talker_dense, cp_dense)
         del talker_dense, cp_dense
         phase_kernels(rec)
+        launches["fused_path"] = phase_fused_path(card)
 
         pl, launches["megakernels"], results["megakernels"] = run_pipeline(
             card, d, "pipeline", None, need=megakernels + ("int8_matmul",) + vocoder,
@@ -892,6 +1134,16 @@ def main() -> int:
         teacher_forced(pl, card, "prequant-pipeline")
         profile_frames(pl, "prequant-pipeline", card)
         del pl
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_model_dir(d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(), seed=0,
+                        with_encoders=True, tts_model_type="base")
+        log(f"[modes-pipeline] wrote a random-weight 0.6B model dir with the speaker encoder "
+            f"(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig()) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches["modes"], results["modes"] = phase_modes(card, d)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
 
@@ -903,9 +1155,11 @@ def main() -> int:
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
                "library_ms": None}
-        if name == "packed_matmul":  # this slice's paths
+        if name == "packed_matmul":  # its two paths
             row["launches"] = launches["prequant"][name] + launches["mixed"][name]
-        for path in ("k3_path", "mixed", "prequant"):
+        if name == "pre_transformer_fused":  # its own entry point
+            row["launches"] = launches["fused_path"][name]
+        for path in ("k3_path", "mixed", "prequant", "modes"):
             row[f"launches_{path}"] = launches[path][name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))

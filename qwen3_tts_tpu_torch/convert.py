@@ -2,7 +2,9 @@
 e.g. pulled from qwen3_tts_tpu trees with np.asarray) into the port's
 trees of torch tensors, including each kernel's layout built from the dense
 tree. The pipeline uses the same conversion on the trees it loads, so a test
-can feed identical weights to both packages.
+can feed identical weights to both packages. The speaker- and audio-encoder
+trees (lists of codebooks included) go through to_torch as they are; a K4a
+tree made by the JAX package's builder goes through fused_pretransformer_params.
 """
 
 from __future__ import annotations
@@ -41,4 +43,17 @@ def vocoder_params(tree: dict, cfg, device="cpu", *, kernel_dtype=None) -> dict:
     out = to_torch({k: v for k, v in tree.items() if k != "kernel"}, device, torch.float32)
     if kernel_dtype is not None:
         out["kernel"] = build_vocoder_kernel_params(out, cfg, kernel_dtype)
+    return out
+
+
+def fused_pretransformer_params(tree: dict, cfg, device="cpu", dtype=torch.bfloat16) -> dict:
+    """The JAX package's K4a tree (build_pretransformer_kernel_params_device,
+    as numpy) -> the port's: the same arrays, weights in `dtype` and norms,
+    LayerScales, biases and rotm in fp32, plus inv_freq [head_dim / 2]."""
+    from .ops.cuda.pretransformer_kernel import _inv_freq
+
+    weights = ("wi", "wq", "wk", "wv", "wo", "wg", "wu", "wd", "wout")
+    out = {k: to_torch(v, device, dtype if k in weights else torch.float32)
+           for k, v in tree.items()}
+    out["inv_freq"] = torch.from_numpy(_inv_freq(cfg.head_dim, cfg.rope_theta)).to(device)
     return out

@@ -1,19 +1,22 @@
 """TTS prompt assembly in embedding space (counterpart of
-qwen3_tts_tpu/models/prompt.py::assemble_prompt, named-speaker mode):
+qwen3_tts_tpu/models/prompt.py::assemble_prompt, every mode):
 
-  role(3 text tokens) ⧺ [tts_pad × padCount, tts_bos] + codecEmbed[:-1]
-  (elementwise sum) ⧺ (text token 3 + codec_bos embed)
+  [instruct | ICL (ref text + ref semantic codes)]? ⧺ role(3 text tokens) ⧺
+  [tts_pad × padCount, tts_bos] + codecEmbed[:-1]   (elementwise sum) ⧺
+  (text token 3 + codec_bos embed)
 
-with the trailing text hidden = proj(embed(text tokens 4..N-6)) ⧺ tts_eos,
-fed one embed per decode step. Prompts are exact-length (no buckets).
-Instruct, ICL, speaker-embedding and free-form-speaker prompts are not
-ported yet and raise NotImplementedError.
+where codecEmbed = [nothink, think_bos, think_eos, speaker?, pad, bos] and
+the speaker slot holds a built-in speaker's codec embedding or a speaker
+embedding (unprojected). The trailing text hidden = proj(embed(text tokens
+4..N-6)) ⧺ tts_eos is fed one embed per decode step. Prompts are
+exact-length (no buckets).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..config import Qwen3TTSConfig
@@ -29,6 +32,12 @@ class PromptData:
     tts_pad_embed: torch.Tensor    # [1, 1, H]
 
 
+def _user_turn(params: dict, tokenizer, text: str, t) -> torch.Tensor:
+    """Projected embeddings of a "<|im_start|>user\\n{text}<|im_end|>\\n" turn."""
+    ids = tokenizer.encode(f"<|im_start|>user\n{text}<|im_end|>\n")
+    return talker_mod.encode_text(params, t(ids))[None]
+
+
 def assemble_prompt(
     params: dict,
     config: Qwen3TTSConfig,
@@ -40,18 +49,15 @@ def assemble_prompt(
     reference_transcript: str | None = None,
     reference_audio_codes=None,
 ) -> PromptData | None:
-    """Prompt embeddings for a built-in speaker (or no speaker); None when
-    the text is shorter than 9 tokens."""
+    """Prompt embeddings for any mode; None when the text is shorter than 9
+    tokens. A named speaker takes the speaker slot, else a speaker
+    embedding; the prefix is the instruct, else the ICL reference (needs a
+    non-empty transcript and codes; only the first codebook row conditions),
+    else a speaker string that names no built-in speaker, read as an
+    instruct."""
+    use_icl = (reference_audio_codes is not None and reference_transcript is not None
+               and len(reference_transcript) > 0)
     speaker_id = config.spk_id.get(speaker.lower())
-    if (
-        instruct or speaker_embedding is not None or reference_transcript
-        or reference_audio_codes is not None or (speaker and speaker_id is None)
-    ):
-        raise NotImplementedError(
-            "only the named-speaker prompt is ported; instruct / ICL / "
-            "speaker-embedding / free-form speaker prompts are ROADMAP "
-            "(other generation modes)"
-        )
     dev = params["norm"]["w"].device
     chat_text = f"<|im_start|>assistant\n{text}<|im_end|>\n<|im_start|>assistant\n"
     ids = torch.tensor(tokenizer.encode(chat_text), dtype=torch.int64, device=dev)
@@ -60,24 +66,52 @@ def assemble_prompt(
         return None
 
     def t(vals):
-        return torch.tensor(vals, dtype=torch.int64, device=dev)
+        return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
 
     tts = talker_mod.encode_text(
         params, t([config.tts_bos_token_id, config.tts_eos_token_id, config.tts_pad_token_id])
     )[None]
     tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
-    codec_ids = [config.codec_nothink_id, config.codec_think_bos_id, config.codec_think_eos_id]
+    prefix = talker_mod.encode_audio(
+        params, t([config.codec_nothink_id, config.codec_think_bos_id,
+                   config.codec_think_eos_id]))[None]
+    suffix = talker_mod.encode_audio(params, t([config.codec_pad_id, config.codec_bos_id]))[None]
     if speaker_id is not None:
-        codec_ids.append(speaker_id)
-    codec_ids += [config.codec_pad_id, config.codec_bos_id]
-    codec_embed = talker_mod.encode_audio(params, t(codec_ids))[None]
+        spk = talker_mod.encode_audio(params, t([speaker_id]))[None]
+        codec_embed = torch.cat([prefix, spk, suffix], dim=1)
+    elif speaker_embedding is not None:
+        spk = speaker_embedding
+        if not isinstance(spk, torch.Tensor):
+            spk = torch.from_numpy(np.asarray(spk, np.float32))
+        spk = spk.reshape(1, 1, -1).to(dev, prefix.dtype)
+        if spk.shape[-1] != prefix.shape[-1]:
+            raise ValueError(
+                f"speaker_embedding dim {spk.shape[-1]} != talker hidden {prefix.shape[-1]}; "
+                "the embedding joins the codec stream unprojected"
+            )
+        codec_embed = torch.cat([prefix, spk, suffix], dim=1)
+    else:
+        codec_embed = torch.cat([prefix, suffix], dim=1)
 
     role_embed = talker_mod.encode_text(params, ids[0:3])[None]
     pad_count = codec_embed.shape[1] - 2
     combined = torch.cat([tts_pad.expand(1, pad_count, -1), tts_bos], dim=1)
     combined = combined + codec_embed[:, :-1]
+
+    lead = None
+    if instruct:
+        lead = _user_turn(params, tokenizer, instruct, t)
+    elif use_icl:
+        lead = _user_turn(params, tokenizer, reference_transcript, t)
+        sem = reference_audio_codes[0] if len(reference_audio_codes) else []
+        if len(sem) > 0:
+            lead = torch.cat([lead, talker_mod.encode_audio(params, t(sem))[None]], dim=1)
+    elif speaker and speaker_id is None and speaker_embedding is None:
+        lead = _user_turn(params, tokenizer, speaker, t)
+
     first_text = talker_mod.encode_text(params, ids[3:4])[None] + codec_embed[:, -1:]
-    input_embeds = torch.cat([role_embed, combined, first_text], dim=1)
+    parts = [role_embed, combined, first_text]
+    input_embeds = torch.cat(parts if lead is None else [lead, *parts], dim=1)
 
     if n - 9 > 0:
         trailing = talker_mod.encode_text(params, ids[4:n - 5])[None]

@@ -1,12 +1,18 @@
 """High-level TTS pipeline of the PyTorch port: load a model directory and
-synthesize with a built-in speaker, blocking or streaming (counterpart of
-qwen3_tts_tpu/pipeline.py's single-stream main path).
+expose every single-stream generation mode (counterpart of
+qwen3_tts_tpu/pipeline.py): generate (built-in speaker, speaker embedding,
+or any prompt mode by keyword), generate_voice_design,
+generate_custom_voice, generate_icl, generate_stream and its VoiceDesign /
+CustomVoice forms, generate_batch (long text with a 480-sample crossfade),
+generate_to_file (streaming WAV), extract_speaker_embedding /
+encode_reference_audio for cloning, and warmup.
 
 Model directory layout (the reference's):
   config.json            talker config (flat or nested talker_config)
-  model.safetensors      talker + code predictor
+  model.safetensors      talker + code predictor (+ optional speaker_encoder.*)
   tokenizer.json         BPE tokenizer
   speech_tokenizer/      vocoder config.json + model.safetensors
+                         (+ optional encoder.* weights for ICL)
 
 Loading mirrors the JAX pipeline's rules. A checkpoint declared pre-quantized
 (config.json `quantization`, as MLX's 4/6/8-bit checkpoints) keeps its
@@ -20,26 +26,32 @@ loaded weights; for a pre-quantized checkpoint or the int8 mode their
 rowwise int8 trees are the only resident copy of the layer weights, the
 codec head and the cp tables (prefill reads them through `w8r` views),
 while in the mixed mode the packed copies stay resident beside them. The
-vocoder runs K4/K5/K6 when use_vocoder_kernels is set.
+vocoder runs K4/K5/K6 when use_vocoder_kernels is set. The speaker and
+audio encoders (plain PyTorch, fp32) load when their weights are present.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from .config import Qwen3TTSConfig, SpeechTokenizerConfig
 from .convert import to_torch
+from .frontend.chunker import chunk_text
 from .frontend.tokenizer import Qwen3Tokenizer
 from .io import checkpoint as ckpt
 from .io import safetensors_io
+from .io.wav import StreamingWAVWriter
 from .models import generate as gen_mod
 from .models import prompt as prompt_mod
 from .models import vocoder as voc
+from .models.audio_encoder import AudioEncoder
+from .models.speaker_encoder import SpeakerEncoder
+from .ops.cuda import _build
 from .ops.cuda.cp_megakernel import build_cp_kernel_params
 from .ops.cuda.talker_megakernel import build_talker_kernel_params
 from .ops.quant import (
@@ -80,6 +92,7 @@ class Qwen3TTSPipelineConfiguration:
     default_temperature: float = 0.85
     default_max_tokens: int = 2400
     default_streaming_chunk_size: int = 12
+    crossfade_samples: int = 480
     use_cp_megakernel: bool | None = None
     use_talker_megakernel: bool | None = None
     use_vocoder_kernels: bool = True
@@ -125,6 +138,31 @@ def _attach_views(tree: dict, tables: dict[str, str]) -> dict:
     return out
 
 
+def resident_bytes(*trees) -> int:
+    """Bytes of the tensor storages in nested dicts / lists, each storage
+    counted once."""
+    seen: set[tuple[str, int]] = set()
+    total = 0
+
+    def walk(node):
+        nonlocal total
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            key = (str(node.device), st.data_ptr())
+            if key not in seen:
+                seen.add(key)
+                total += st.nbytes()
+
+    walk(trees)
+    return total
+
+
 class Qwen3TTSPipeline:
     sample_rate = SAMPLE_RATE
 
@@ -151,9 +189,13 @@ class Qwen3TTSPipeline:
             self.config = Qwen3TTSConfig.from_json(f.read())
         self.tokenizer = Qwen3Tokenizer(model_path)
 
-        params, cp_params = ckpt.load_talker_checkpoint(
-            safetensors_io.load_file(weights_path), self.config, dtype=np.float32
-        )
+        weights = safetensors_io.load_file(weights_path)
+        params, cp_params = ckpt.load_talker_checkpoint(weights, self.config, dtype=np.float32)
+        # speaker encoder: "speaker_encoder." keys in the main file
+        spk_keys = {k: v for k, v in weights.items() if k.startswith("speaker_encoder.")}
+        self.speaker_encoder = (SpeakerEncoder.from_weights(spk_keys, device=self.device)
+                                if spk_keys else None)
+        del weights
         pc = self.pipeline_config
         on_cuda = self.device.type == "cuda"
         use_talker_k = on_cuda if pc.use_talker_megakernel is None else pc.use_talker_megakernel
@@ -205,14 +247,20 @@ class Qwen3TTSPipeline:
         with open(st_cfg_path, "r", encoding="utf-8") as f:
             self.speech_config = SpeechTokenizerConfig.from_json(f.read())
         dec_cfg = self.speech_config.decoder_config
+        st_weights = safetensors_io.load_file(st_weights_path)
         # the dense vocoder tree stays fp32 (as in the JAX pipeline); the
         # kernels' GEMM weights take the pipeline dtype
         self.vocoder_params = to_torch(
-            ckpt.load_vocoder_checkpoint(
-                safetensors_io.load_file(st_weights_path), dec_cfg, dtype=np.float32
-            ),
+            ckpt.load_vocoder_checkpoint(st_weights, dec_cfg, dtype=np.float32),
             self.device, torch.float32,
         )
+        # audio encoder for ICL: "encoder." keys in the vocoder file
+        enc_keys = {k: v for k, v in st_weights.items() if "encoder." in k}
+        self.audio_encoder = None
+        if enc_keys and self.speech_config.encoder_config is not None:
+            self.audio_encoder = AudioEncoder.from_weights(enc_keys, self.speech_config,
+                                                           device=self.device)
+        del st_weights
         if self.pipeline_config.use_vocoder_kernels:
             self.vocoder_params["kernel"] = voc.build_vocoder_kernel_params(
                 self.vocoder_params, dec_cfg, dtype
@@ -221,33 +269,52 @@ class Qwen3TTSPipeline:
 
     def model_resident_bytes(self) -> int:
         """Device bytes of the resident model (talker, code predictor,
-        vocoder), counting each storage once: the megakernel trees and their
-        `w8r` views share theirs."""
-        seen: set[tuple[str, int]] = set()
-        total = 0
+        vocoder, encoders), counting each storage once: the megakernel trees
+        and their `w8r` views share theirs."""
+        encoders = [e.params for e in (self.speaker_encoder, self.audio_encoder) if e]
+        return resident_bytes(self.params, self.cp_params, self.vocoder_params, *encoders)
 
-        def walk(node):
-            nonlocal total
-            if isinstance(node, dict):
-                for v in node.values():
-                    walk(v)
-            elif isinstance(node, (list, tuple)):
-                for v in node:
-                    walk(v)
-            elif isinstance(node, torch.Tensor):
-                st = node.untyped_storage()
-                key = (str(node.device), st.data_ptr())
-                if key not in seen:
-                    seen.add(key)
-                    total += st.nbytes()
+    def warmup(self, max_tokens: int = 24) -> None:
+        """Build the CUDA kernels (on a CUDA device) and run one blocking and
+        one streaming generation, so the first real call pays neither."""
+        if self.device.type == "cuda":
+            _build.lib()
+        text = "Warm up the blocking and streaming generation paths."
+        if self.available_speakers:
+            kwargs: dict = {"speaker": self.available_speakers[0]}
+        elif self.supports_voice_design:
+            kwargs = {"instruct": "A warm, neutral narrator voice."}
+        else:
+            kwargs = {}
+        self.generate(text, max_tokens=max_tokens, seed=0, **kwargs)
+        for _ in self.generate_stream(text, max_tokens=max_tokens, seed=0, **kwargs):
+            pass
 
-        for tree in (self.params, self.cp_params, self.vocoder_params):
-            walk(tree)
-        return total
+    # -- capabilities ------------------------------------------------------
 
     @property
     def available_speakers(self) -> list[str]:
         return sorted(self.config.spk_id.keys())
+
+    @property
+    def supports_voice_cloning(self) -> bool:
+        return self.speaker_encoder is not None
+
+    @property
+    def supports_icl(self) -> bool:
+        return self.audio_encoder is not None
+
+    @property
+    def model_type(self) -> str | None:
+        return self.config.tts_model_type
+
+    @property
+    def supports_voice_design(self) -> bool:
+        return self.config.tts_model_type == "voice_design"
+
+    @property
+    def supports_custom_voice(self) -> bool:
+        return self.config.tts_model_type == "custom_voice"
 
     def _assemble(self, text: str, speaker: str, **prompt_kwargs):
         return prompt_mod.assemble_prompt(
@@ -283,26 +350,71 @@ class Qwen3TTSPipeline:
         )
         return sanitize_samples(wav[0])
 
-    def generate(self, text: str, speaker: str = "", *, temperature: float | None = None,
-                 max_tokens: int | None = None, seed: int = 0, **prompt_kwargs) -> np.ndarray:
-        """Blocking synthesis with a built-in speaker: float32 PCM at 24 kHz."""
+    # -- generation modes --------------------------------------------------
+
+    def generate(
+        self,
+        text: str,
+        speaker: str = "",
+        *,
+        instruct: str | None = None,
+        speaker_embedding=None,
+        reference_transcript: str | None = None,
+        reference_audio_codes=None,
+        temperature: float | None = None,
+        max_tokens: int | None = None,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Blocking synthesis: float32 PCM at 24 kHz. Takes every prompt mode
+        (a built-in speaker, a speaker embedding, an instruct, an ICL
+        reference); the dedicated wrappers below name the common ones."""
         frames = self._generate_codes(
-            text, speaker, temperature=temperature, max_tokens=max_tokens, seed=seed,
-            **prompt_kwargs,
+            text, speaker, instruct=instruct, speaker_embedding=speaker_embedding,
+            reference_transcript=reference_transcript,
+            reference_audio_codes=reference_audio_codes,
+            temperature=temperature, max_tokens=max_tokens, seed=seed,
         )
         return self._decode_to_audio(frames)
+
+    def generate_voice_design(self, text: str, voice_description: str, *,
+                              temperature: float | None = None, max_tokens: int | None = None,
+                              seed: int = 0) -> np.ndarray:
+        """Synthesis from a natural-language voice description."""
+        return self.generate(text, instruct=voice_description, temperature=temperature,
+                             max_tokens=max_tokens, seed=seed)
+
+    def generate_custom_voice(self, text: str, speaker: str, instruct: str, *,
+                              temperature: float | None = None, max_tokens: int | None = None,
+                              seed: int = 0) -> np.ndarray:
+        """A built-in speaker with a style instruct."""
+        return self.generate(text, speaker, instruct=instruct, temperature=temperature,
+                             max_tokens=max_tokens, seed=seed)
+
+    def generate_icl(self, text: str, reference_transcript: str, reference_audio_codes, *,
+                     speaker: str = "", temperature: float | None = None,
+                     max_tokens: int | None = None, seed: int = 0) -> np.ndarray:
+        """In-context-learning voice cloning from a reference transcript and
+        its codec codes (encode_reference_audio)."""
+        return self.generate(text, speaker, reference_transcript=reference_transcript,
+                             reference_audio_codes=reference_audio_codes,
+                             temperature=temperature, max_tokens=max_tokens, seed=seed)
+
+    # -- streaming ---------------------------------------------------------
 
     def generate_stream(
         self,
         text: str,
         speaker: str = "",
         *,
+        instruct: str | None = None,
+        speaker_embedding=None,
+        reference_transcript: str | None = None,
+        reference_audio_codes=None,
         temperature: float | None = None,
         max_tokens: int | None = None,
         chunk_size: int | None = None,
         first_decode_chunk: int | None = None,
         seed: int = 0,
-        **prompt_kwargs,
     ) -> Iterator[AudioChunk]:
         """Buffer-and-batch streaming: decode every 18 valid frames with 8
         frames of re-decoded left context, flush the remainder, then an empty
@@ -311,7 +423,10 @@ class Qwen3TTSPipeline:
         predictor's repetition sets."""
         chunk = chunk_size or self.pipeline_config.default_streaming_chunk_size
         next_decode = first_decode_chunk or DECODE_CHUNK_SIZE
-        pd = self._assemble(text, speaker, **prompt_kwargs)
+        pd = self._assemble(text, speaker, instruct=instruct,
+                            speaker_embedding=speaker_embedding,
+                            reference_transcript=reference_transcript,
+                            reference_audio_codes=reference_audio_codes)
         total = 0
         if pd is not None:
             code_stream = gen_mod.stream_codes(
@@ -342,9 +457,133 @@ class Qwen3TTSPipeline:
                 yield AudioChunk(sanitize_samples(samples), (total - len(buffered), total), True)
         yield AudioChunk(np.zeros(0, np.float32), (total, total), True)
 
-    def _decode_with_context(self, frames: np.ndarray, left_context):
-        """One vocoder call over `frames` with optional re-decoded left
-        context: returns (samples of `frames`, next left context)."""
+    def generate_stream_voice_design(self, text: str, voice_description: str,
+                                     **kwargs) -> Iterator[AudioChunk]:
+        """Streaming VoiceDesign."""
+        return self.generate_stream(text, instruct=voice_description, **kwargs)
+
+    def generate_stream_custom_voice(self, text: str, speaker: str, instruct: str,
+                                     **kwargs) -> Iterator[AudioChunk]:
+        """Streaming CustomVoice."""
+        return self.generate_stream(text, speaker, instruct=instruct, **kwargs)
+
+    # -- long text ---------------------------------------------------------
+
+    def generate_batch(
+        self,
+        text: str,
+        speaker: str = "",
+        *,
+        instruct: str | None = None,
+        speaker_embedding=None,
+        reference_transcript: str | None = None,
+        temperature: float | None = None,
+        on_progress: Callable[[float], None] | None = None,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """Chunk long text (chunk_text), synthesize each chunk (at most 600
+        frames, seed + chunk index), decode it in 24-frame windows with 8
+        frames of left context, and stitch chunks with a linear crossfade of
+        crossfade_samples. One chunk goes through the whole prompt (instruct
+        and transcript kept, unlike the reference's single-chunk shortcut);
+        a crossfade tail left when every later chunk yields no frames is
+        flushed, not dropped. As in the JAX pipeline, ICL codes are not
+        taken here."""
+        crossfade = self.pipeline_config.crossfade_samples
+        text_chunks = chunk_text(text)
+        if not text_chunks:
+            return np.zeros(0, np.float32)
+        prompt = dict(speaker=speaker, instruct=instruct, speaker_embedding=speaker_embedding,
+                      reference_transcript=reference_transcript, temperature=temperature)
+        if len(text_chunks) == 1:
+            if on_progress:
+                on_progress(0.0)
+            out = self._decode_to_audio(self._generate_codes(text_chunks[0], seed=seed,
+                                                             **prompt))
+            if on_progress:
+                on_progress(1.0)
+            return out
+
+        pieces: list[np.ndarray] = []
+        tail = np.zeros(0, np.float32)
+        for idx, text_chunk in enumerate(text_chunks):
+            if on_progress:
+                on_progress(idx / len(text_chunks))
+            frames = self._generate_codes(text_chunk, max_tokens=600, seed=seed + idx, **prompt)
+            if len(frames) == 0:
+                continue
+            samples = self._decode_chunked(frames, decode_chunk_size=24)
+            if len(samples) == 0:
+                continue
+            if len(tail) and crossfade > 0:
+                fade = min(crossfade, len(tail), len(samples))
+                t = np.arange(fade, dtype=np.float32)
+                pieces.append(tail[:fade] * ((fade - t) / fade) + samples[:fade] * (t / fade))
+                samples = samples[fade:]
+            if idx == len(text_chunks) - 1:
+                pieces.append(samples)
+                tail = np.zeros(0, np.float32)
+            elif len(samples) > crossfade:
+                pieces.append(samples[: len(samples) - crossfade])
+                tail = samples[len(samples) - crossfade:]
+            else:
+                tail = samples
+        if len(tail):
+            pieces.append(tail)
+        if on_progress:
+            on_progress(1.0)
+        return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+    def generate_to_file(
+        self,
+        text: str,
+        output_path: str | os.PathLike,
+        speaker: str = "",
+        *,
+        instruct: str | None = None,
+        speaker_embedding=None,
+        reference_transcript: str | None = None,
+        reference_audio_codes=None,
+        temperature: float | None = None,
+        on_progress: Callable[[float], None] | None = None,
+        seed: int = 0,
+    ) -> int:
+        """Long-text synthesis straight to a 16-bit WAV file, chunk by chunk
+        (at most 600 frames each, 16-frame vocoder windows); returns the
+        number of samples written."""
+        text_chunks = chunk_text(text)
+        if not text_chunks:
+            return 0
+        writer = StreamingWAVWriter(output_path, SAMPLE_RATE)
+        try:
+            for idx, text_chunk in enumerate(text_chunks):
+                if on_progress:
+                    on_progress(idx / len(text_chunks))
+                frames = self._generate_codes(
+                    text_chunk, speaker, instruct=instruct,
+                    speaker_embedding=speaker_embedding,
+                    reference_transcript=reference_transcript,
+                    reference_audio_codes=reference_audio_codes,
+                    temperature=temperature, max_tokens=600, seed=seed + idx,
+                )
+                if len(frames) == 0:
+                    continue
+                samples = self._decode_chunked(frames, decode_chunk_size=16)
+                if len(samples):
+                    writer.write(samples)
+            if on_progress:
+                on_progress(1.0)
+        finally:
+            count = writer.finalize()
+        return count
+
+    # -- vocoder windows ---------------------------------------------------
+
+    def _dispatch_decode_with_context(self, frames: np.ndarray, left_context):
+        """Queue one vocoder call over `frames` with optional re-decoded left
+        context, and its copy to the host, without waiting: returns (a
+        function that waits and gives the window's raw samples, next left
+        context). On CUDA the copy goes to pinned memory behind an event."""
         if left_context is not None:
             decode_input = np.concatenate([left_context, frames])
             drop = len(left_context) * self._samples_per_frame
@@ -353,5 +592,59 @@ class Qwen3TTSPipeline:
         codes = torch.from_numpy(np.ascontiguousarray(decode_input.T[None])).long()
         wav = voc.decode_frames(
             self.vocoder_params, codes.to(self.device), self.speech_config.decoder_config
-        )
-        return wav[0].cpu().numpy()[drop:], frames[-LEFT_CONTEXT_SIZE:]
+        )[0]
+        if wav.is_cuda:
+            host = torch.empty(wav.shape, dtype=wav.dtype, pin_memory=True)
+            host.copy_(wav, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+
+            def pull() -> np.ndarray:
+                done.synchronize()
+                return host.numpy()[drop:]
+        else:
+            def pull() -> np.ndarray:
+                return wav.numpy()[drop:]
+        return pull, frames[-LEFT_CONTEXT_SIZE:]
+
+    def _decode_with_context(self, frames: np.ndarray, left_context):
+        """Blocking form of _dispatch_decode_with_context: (samples of
+        `frames`, next left context)."""
+        pull, ctx = self._dispatch_decode_with_context(frames, left_context)
+        return pull(), ctx
+
+    def _decode_chunked(self, frames: np.ndarray, decode_chunk_size: int) -> np.ndarray:
+        """Vocoder decode in windows of `decode_chunk_size` frames, each with
+        the 8 frames before it as re-decoded context. Windows are independent
+        given their context, so two are kept in flight: window i + 1 is
+        queued before window i's samples are pulled, and its copy to the host
+        overlaps the next window's vocoding."""
+        pieces: list[np.ndarray] = []
+        pending = None
+        for pos in range(0, len(frames), decode_chunk_size):
+            left = frames[max(0, pos - LEFT_CONTEXT_SIZE): pos] if pos else None
+            pull, _ = self._dispatch_decode_with_context(
+                frames[pos: pos + decode_chunk_size], left)
+            if pending is not None:
+                pieces.append(sanitize_samples(pending()))
+            pending = pull
+        if pending is not None:
+            pieces.append(sanitize_samples(pending()))
+        return np.concatenate(pieces) if pieces else np.zeros(0, np.float32)
+
+    # -- voice-cloning inputs ----------------------------------------------
+
+    def extract_speaker_embedding(self, audio_samples) -> np.ndarray | None:
+        """Speaker embedding (enc_dim, 1024 at 0.6B) of 24 kHz audio; None
+        without a speaker encoder."""
+        if self.speaker_encoder is None:
+            return None
+        return self.speaker_encoder.extract_embedding(np.asarray(audio_samples))
+
+    def encode_reference_audio(self, audio_samples) -> list[np.ndarray] | None:
+        """Codec codes (one row per codebook) of 24 kHz reference audio, for
+        generate_icl; None without an audio encoder."""
+        if self.audio_encoder is None:
+            return None
+        codes = self.audio_encoder.encode(np.asarray(audio_samples))
+        return [codes[q] for q in range(codes.shape[0])]

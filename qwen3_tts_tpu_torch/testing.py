@@ -2,9 +2,10 @@
 
 Random-weight parameter trees in the JAX package's layouts, reference-format
 checkpoint export, and a writer of a complete loadable model directory
-(config.json, model.safetensors, tokenizer.json, speech_tokenizer/) at any
-width, including the full 0.6B one. The trees and the export follow
-qwen3_tts_tpu/testing.py so both packages read the same directories.
+(config.json, model.safetensors, tokenizer.json, speech_tokenizer/, and
+optionally the speaker and audio encoders) at any width, including the full
+0.6B one. The trees and the export follow qwen3_tts_tpu/testing.py so both
+packages read the same directories.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 from .config import (
     CodePredictorConfig,
     Qwen3TTSConfig,
+    SpeakerEncoderConfig,
     TokenizerDecoderConfig,
+    TokenizerEncoderConfig,
 )
 from .io import safetensors_io
 from .ops.quant import quantize_np
@@ -82,6 +85,32 @@ def tiny_decoder_config(**overrides) -> TokenizerDecoderConfig:
     )
     defaults.update(overrides)
     return TokenizerDecoderConfig(**defaults)
+
+
+def tiny_speaker_config(**overrides) -> SpeakerEncoderConfig:
+    """Small ECAPA config; enc_dim equals the tiny talker's hidden size (64),
+    since the embedding joins the codec stream unprojected."""
+    defaults = dict(
+        enc_dim=64, mel_dim=16, enc_channels=(16, 16, 16, 16, 48),
+        enc_kernel_sizes=(5, 3, 3, 3, 1), enc_dilations=(1, 2, 3, 4, 1),
+        enc_res2net_scale=8, enc_se_channels=8, enc_attention_channels=8,
+    )
+    defaults.update(overrides)
+    return SpeakerEncoderConfig(**defaults)
+
+
+def tiny_encoder_config(**overrides) -> TokenizerEncoderConfig:
+    """Small audio-encoder config (downsampling 4 x 3 x compress 2)."""
+    defaults = dict(
+        audio_channels=1, codebook_dim=16, codebook_size=64, compress=2,
+        hidden_size=32, intermediate_size=64, kernel_size=7, last_kernel_size=3,
+        num_filters=8, num_hidden_layers=2, num_residual_layers=1, num_quantizers=32,
+        num_semantic_quantizers=1, upsampling_ratios=(4, 3), head_dim=8,
+        num_attention_heads=4, num_key_value_heads=4,
+        vector_quantization_hidden_dimension=16,
+    )
+    defaults.update(overrides)
+    return TokenizerEncoderConfig(**defaults)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +316,86 @@ def random_vocoder_params(
     return params
 
 
+def _np_conv(rng, k, cin, cout) -> dict:
+    """Conv {"w": [K, Cin, Cout], "b": zeros}, weights scaled by 1/sqrt(fan
+    in) so a deep random stack stays finite at full width."""
+    w = rng.standard_normal((k, cin, cout)) * np.float32(1.0 / np.sqrt(k * cin))
+    return {"w": w, "b": np.zeros((cout,), np.float32)}
+
+
+def random_speaker_encoder_params(config: SpeakerEncoderConfig, seed: int = 3) -> dict:
+    """Numpy random ECAPA tree (models/speaker_encoder.py layout)."""
+    rng = _RandPool(seed)
+    ch, kz, r = config.enc_channels, config.enc_kernel_sizes, config.enc_res2net_scale
+
+    def se_res2net(cin, cout, k):
+        return {
+            "tdnn1": _np_conv(rng, 1, cin, cout),
+            "tdnn2": _np_conv(rng, 1, cout, cout),
+            "se_block": {"conv1": _np_conv(rng, 1, cout, config.enc_se_channels),
+                         "conv2": _np_conv(rng, 1, config.enc_se_channels, cout)},
+            "res2net_block": {"blocks": [_np_conv(rng, k, cout // r, cout // r)
+                                         for _ in range(r - 1)]},
+        }
+
+    return {
+        "blocks": [_np_conv(rng, kz[0], config.mel_dim, ch[0]),
+                   se_res2net(ch[0], ch[1], kz[1]), se_res2net(ch[1], ch[2], kz[2]),
+                   se_res2net(ch[2], ch[3], kz[3])],
+        "mfa": _np_conv(rng, kz[4], ch[1] + ch[2] + ch[3], ch[4]),
+        "asp": {"tdnn": _np_conv(rng, 1, ch[4] * 3, config.enc_attention_channels),
+                "conv": _np_conv(rng, 1, config.enc_attention_channels, ch[4])},
+        "fc": _np_conv(rng, 1, ch[4] * 2, config.enc_dim),
+    }
+
+
+def random_audio_encoder_params(cfg: TokenizerEncoderConfig, seed: int = 4) -> dict:
+    """Numpy random audio-encoder tree (models/audio_encoder.py layout)."""
+    rng = _RandPool(seed)
+    nf, h = cfg.num_filters, cfg.hidden_size
+    seanet: dict = {"initial_conv": _np_conv(rng, cfg.kernel_size, cfg.audio_channels, nf),
+                    "stages": []}
+    cur = nf
+    for i, ratio in enumerate(reversed(cfg.upsampling_ratios)):
+        out = nf * 2 ** (i + 1)
+        resnets = [{"conv1": _np_conv(rng, cfg.residual_kernel_size, cur, cur // cfg.compress),
+                    "conv2": _np_conv(rng, 1, cur // cfg.compress, cur)}
+                   for _ in range(cfg.num_residual_layers)]
+        seanet["stages"].append({"resnets": resnets, "down": _np_conv(rng, 2 * ratio, cur, out)})
+        cur = out
+    seanet["final_conv"] = _np_conv(rng, cfg.last_kernel_size, cur, h)
+    nhd = cfg.num_attention_heads * cfg.head_dim
+
+    def tf_layer():
+        ones, zeros = np.ones((h,), np.float32), np.zeros((h,), np.float32)
+        scale = np.full((h,), cfg.layer_scale_initial_scale, np.float32)
+        return {
+            "input_layernorm": {"w": ones, "b": zeros},
+            "post_attention_layernorm": {"w": ones, "b": zeros},
+            "self_attn_layer_scale": {"w": scale},
+            "mlp_layer_scale": {"w": scale},
+            "q_proj": _np_dense(rng, nhd, h), "k_proj": _np_dense(rng, nhd, h),
+            "v_proj": _np_dense(rng, nhd, h), "o_proj": _np_dense(rng, h, nhd),
+            "fc1": _np_dense(rng, cfg.intermediate_size, h, True),
+            "fc2": _np_dense(rng, h, cfg.intermediate_size, True),
+        }
+
+    d = cfg.vector_quantization_hidden_dimension
+
+    def rvq_half(n):
+        return {"input_proj": _np_dense(rng, d, h), "output_proj": _np_dense(rng, h, d),
+                "codebooks": [rng.standard_normal((cfg.codebook_size, d)) * np.float32(0.1)
+                              for _ in range(n)]}
+
+    ns = cfg.num_semantic_quantizers
+    return {
+        "seanet": seanet,
+        "transformer": {"layers": [tf_layer() for _ in range(cfg.num_hidden_layers)]},
+        "downsample": _np_conv(rng, 2 * cfg.compress, h, h),
+        "quantizer": {"semantic": rvq_half(ns), "acoustic": rvq_half(cfg.num_quantizers - ns)},
+    }
+
+
 # ---------------------------------------------------------------------------
 # Reference-format checkpoint export
 # ---------------------------------------------------------------------------
@@ -422,6 +531,84 @@ def export_vocoder_checkpoint(params: dict) -> dict:
     return out
 
 
+def export_speaker_encoder_checkpoint(params: dict) -> dict:
+    """ECAPA tree -> "speaker_encoder." keys with torch conv layouts."""
+    out = {}
+
+    def put(prefix, entry):
+        out[f"speaker_encoder.{prefix}.weight"] = np.ascontiguousarray(
+            _np(entry["w"]).transpose(2, 1, 0))
+        out[f"speaker_encoder.{prefix}.bias"] = _np(entry["b"])
+
+    put("blocks.0.conv", params["blocks"][0])
+    for i in range(1, 4):
+        b = params["blocks"][i]
+        put(f"blocks.{i}.tdnn1.conv", b["tdnn1"])
+        put(f"blocks.{i}.tdnn2.conv", b["tdnn2"])
+        put(f"blocks.{i}.se_block.conv1", b["se_block"]["conv1"])
+        put(f"blocks.{i}.se_block.conv2", b["se_block"]["conv2"])
+        for j, blk in enumerate(b["res2net_block"]["blocks"]):
+            put(f"blocks.{i}.res2net_block.blocks.{j}.conv", blk)
+    put("mfa.conv", params["mfa"])
+    put("asp.tdnn.conv", params["asp"]["tdnn"])
+    put("asp.conv", params["asp"]["conv"])
+    put("fc", params["fc"])
+    return out
+
+
+def export_audio_encoder_checkpoint(params: dict, cfg: TokenizerEncoderConfig) -> dict:
+    """Audio-encoder tree -> "encoder." keys with torch layouts, the
+    codebooks as RVQ EMA stats (usage 1)."""
+    out = {}
+
+    def put_conv(prefix, entry):
+        out[f"encoder.{prefix}.weight"] = np.ascontiguousarray(_np(entry["w"]).transpose(2, 1, 0))
+        if "b" in entry:
+            out[f"encoder.{prefix}.bias"] = _np(entry["b"])
+
+    def put_lin(prefix, entry, as_conv=False):
+        w = _np(entry["w"])
+        out[f"encoder.{prefix}.weight"] = w[:, :, None] if as_conv else w
+        if "b" in entry:
+            out[f"encoder.{prefix}.bias"] = _np(entry["b"])
+
+    sea = params["seanet"]
+    put_conv("encoder.layers.0.conv", sea["initial_conv"])
+    idx = 1
+    for stage in sea["stages"]:
+        for res in stage["resnets"]:
+            put_conv(f"encoder.layers.{idx}.block.1.conv", res["conv1"])
+            put_conv(f"encoder.layers.{idx}.block.3.conv", res["conv2"])
+            idx += 1
+        idx += 1  # ELU
+        put_conv(f"encoder.layers.{idx}.conv", stage["down"])
+        idx += 1
+    put_conv(f"encoder.layers.{idx + 1}.conv", sea["final_conv"])  # after the final ELU
+    for i, lp in enumerate(params["transformer"]["layers"]):
+        p = f"encoder_transformer.layers.{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[f"encoder.{p}.{norm}.weight"] = _np(lp[norm]["w"])
+            out[f"encoder.{p}.{norm}.bias"] = _np(lp[norm]["b"])
+        for scale in ("self_attn_layer_scale", "mlp_layer_scale"):
+            out[f"encoder.{p}.{scale}.scale"] = _np(lp[scale]["w"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            put_lin(f"{p}.self_attn.{name}", lp[name])
+        put_lin(f"{p}.mlp.fc1", lp["fc1"])
+        put_lin(f"{p}.mlp.fc2", lp["fc2"])
+    put_conv("downsample.conv.conv", params["downsample"])
+    for half, base in (("semantic", "quantizer.semantic_residual_vector_quantizer"),
+                       ("acoustic", "quantizer.acoustic_residual_vector_quantizer")):
+        q = params["quantizer"][half]
+        put_lin(f"{base}.input_proj", q["input_proj"], as_conv=True)
+        put_lin(f"{base}.output_proj", q["output_proj"], as_conv=True)
+        for i, cb in enumerate(q["codebooks"]):
+            cb = _np(cb)
+            out[f"encoder.{base}.layers.{i}._codebook.cluster_usage"] = np.ones(
+                (cb.shape[0],), np.float32)
+            out[f"encoder.{base}.layers.{i}._codebook.embedding_sum"] = cb
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Model directory
 # ---------------------------------------------------------------------------
@@ -474,7 +661,8 @@ def config_to_json_dict(cfg: Qwen3TTSConfig) -> dict:
     return d
 
 
-def decoder_config_to_json_dict(dec: TokenizerDecoderConfig) -> dict:
+def decoder_config_to_json_dict(dec) -> dict:
+    """A decoder or encoder config as its JSON dict (tuples as lists)."""
     return {k: (list(v) if isinstance(v, tuple) else v)
             for k, v in dataclasses.asdict(dec).items()}
 
@@ -485,13 +673,27 @@ def write_model_dir(
     decoder_config: TokenizerDecoderConfig,
     seed: int = 0,
     weight_dtype=torch.bfloat16,
+    *,
+    with_encoders: bool = False,
+    speaker_config: SpeakerEncoderConfig | None = None,
+    encoder_config: TokenizerEncoderConfig | None = None,
+    tts_model_type: str | None = None,
 ):
     """Write a loadable random-weight model directory at any width (the full
     0.6B one included); weights are stored in `weight_dtype` (bf16, as real
-    checkpoints are). Returns (talker_params, cp_params, vocoder_params),
-    the dense source trees before the storage cast."""
+    checkpoints are). With with_encoders, the speaker encoder
+    (`speaker_config`, default SpeakerEncoderConfig() with enc_dim the
+    talker's hidden size) goes into model.safetensors as "speaker_encoder."
+    keys and the audio encoder (`encoder_config`, default
+    TokenizerEncoderConfig()) into the vocoder file as "encoder." keys, with
+    its config in speech_tokenizer/config.json; both stored in fp32.
+    tts_model_type ("voice_design", "custom_voice", "base") goes into
+    config.json. Returns (talker_params, cp_params, vocoder_params), the
+    dense source trees before the storage cast."""
     path = os.fspath(path)
     os.makedirs(os.path.join(path, "speech_tokenizer"), exist_ok=True)
+    if tts_model_type is not None:
+        config = dataclasses.replace(config, tts_model_type=tts_model_type)
     params = random_host_talker_params(config, seed)
     cp_params = random_host_cp_params(config, seed + 1)
     voc = random_vocoder_params(decoder_config, seed + 2)
@@ -500,12 +702,17 @@ def write_model_dir(
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(weight_dtype)
                 for k, v in d.items()}
 
+    def f32(d: dict) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in d.items()}
+
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(config_to_json_dict(config), f)
-    safetensors_io.save_file(
-        cast(export_talker_checkpoint(params, cp_params, config)),
-        os.path.join(path, "model.safetensors"),
-    )
+    main = cast(export_talker_checkpoint(params, cp_params, config))
+    if with_encoders:
+        spk = speaker_config or SpeakerEncoderConfig(enc_dim=config.hidden_size)
+        main.update(f32(export_speaker_encoder_checkpoint(
+            random_speaker_encoder_params(spk, seed + 3))))
+    safetensors_io.save_file(main, os.path.join(path, "model.safetensors"))
     with open(os.path.join(path, "tokenizer.json"), "w") as f:
         json.dump(make_tiny_tokenizer_json(), f)
     total = decoder_config.total_upsample
@@ -517,12 +724,16 @@ def write_model_dir(
         "decode_upsample_rate": total,
         "encode_downsample_rate": total,
     }
+    st_weights = cast(export_vocoder_checkpoint(voc))
+    if with_encoders:
+        enc = encoder_config or TokenizerEncoderConfig()
+        st_weights.update(f32(export_audio_encoder_checkpoint(
+            random_audio_encoder_params(enc, seed + 4), enc)))
+        st_cfg["encoder_config"] = decoder_config_to_json_dict(enc)
     with open(os.path.join(path, "speech_tokenizer", "config.json"), "w") as f:
         json.dump(st_cfg, f)
     safetensors_io.save_file(
-        cast(export_vocoder_checkpoint(voc)),
-        os.path.join(path, "speech_tokenizer", "model.safetensors"),
-    )
+        st_weights, os.path.join(path, "speech_tokenizer", "model.safetensors"))
     return params, cp_params, voc
 
 

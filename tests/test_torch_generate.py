@@ -2,8 +2,7 @@
 testing helpers (the writer chip_smoke.py uses at full width), loaded on
 the CPU in fp32: generate and generate_stream run end to end, the stop
 conditions freeze the frame count, sampled draws follow the
-torch.Generator, and unported prompt modes raise NotImplementedError naming
-their ROADMAP item."""
+torch.Generator, and every prompt mode synthesizes."""
 
 import numpy as np
 import pytest
@@ -27,10 +26,20 @@ def tpl(tmp_path_factory):
 
 
 def test_unported_prompt_modes_raise(tpl):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.generate(TEXT, "aiden", instruct="calm", max_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpl.generate(TEXT, "not a built-in speaker", max_tokens=4)
+    """The instruct, free-form speaker, ICL and speaker-embedding prompts
+    give audio; only a speaker embedding of the wrong width raises."""
+    spf = tpl._samples_per_frame
+    runs = [
+        tpl.generate(TEXT, "aiden", instruct="calm", max_tokens=4),
+        tpl.generate(TEXT, "not a built-in speaker", max_tokens=4),
+        tpl.generate_icl(TEXT, "Reference words.", [[5, 9, 11], [1, 2, 3]], max_tokens=4),
+        tpl.generate(TEXT, speaker_embedding=np.zeros(tpl.config.hidden_size, np.float32),
+                     max_tokens=4),
+    ]
+    for audio in runs:
+        assert 0 < len(audio) <= 4 * spf and np.isfinite(audio).all()
+    with pytest.raises(ValueError, match="speaker_embedding dim"):
+        tpl.generate(TEXT, speaker_embedding=np.zeros(3, np.float32), max_tokens=4)
 
 
 def test_stop_conditions_freeze_the_frame_count(tpl):
