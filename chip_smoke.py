@@ -11,7 +11,12 @@ non-zero):
                 window of ~200 slots and one of 3 slots), K2 (code-predictor
                 frame, with and without the repetition penalty) and K2g
                 (Gumbel sampler: same draws as its plain version, chi-square
-                of 100k draws) at 0.6B
+                of 100k draws) at 0.6B; K1 and K2 are each one persistent
+                cooperative launch: their grids and shared memory, one device
+                kernel per call (profiler), repeated runs bit-identical, the
+                weight bytes per second they reach, the cost of one grid
+                barrier (a launch of n barriers) times the barriers a step
+                and a frame make
   kernels     - K3, K4, K4a, K5, K6 and K7 against their plain PyTorch
                 versions at the 0.6B main path's shapes, fp32 and bf16, with
                 times and bounds (K7 at 4 and 6 bits on the mixed mode's
@@ -22,10 +27,16 @@ non-zero):
   fused-pretransformer - K4a's own entry point, pre_transformer_fused, on
                 the 0.6B vocoder's pre-transformer (no pipeline path runs
                 it, in this port or in the JAX package): launch counts
+  sampler     - K2g's own entry point, gumbel_sample, on the code
+                predictor's 2048 logits: a frame's 15 draws, sampled and
+                greedy, from fp32 and bf16 logits (no pipeline path launches
+                its kernel: K2 makes the draws with its device function
+                inside its own launch): launch counts
   pipeline    - the default configuration (megakernels on): a random-weight
                 0.6B model dir, Qwen3TTSPipeline in bf16, generate() and
-                generate_stream(); checks the audio and that K1, K2, K2g,
-                K3 (text projection), K4, K5, K6 ran; a decode chunk with no
+                generate_stream(); checks the audio and that K1, K2,
+                K3 (text projection), K4, K5, K6 ran (K2g's kernel not, its
+                draws made inside K2); a decode chunk with no
                 host sync; K1/K2 against their plain versions teacher-forced
                 over the generated frames; the kernel vocoder against the
                 plain one; a profile of the frame loop
@@ -38,8 +49,8 @@ non-zero):
                 version swapped in, in a bf16 and an fp32 model
   prequant-pipeline - a 0.6B dir pre-quantized to 4 bits, group 64 (MLX's
                 layout, written by write_prequantized_model_dir), in the
-                default configuration: K1, K2, K2g, K7 (text projection),
-                K4-K6 ran and K3 did not; a decode chunk with no host sync
+                default configuration: K1, K2, K7 (text projection),
+                K4-K6 ran and K3 and K2g's kernel did not; a decode chunk with no host sync
                 (packed embedding gathers in the frame loop); K1/K2
                 teacher-forced on the kernel trees built from packed weights; a
                 profile of the frame loop
@@ -50,8 +61,8 @@ non-zero):
                 (held against the port's CPU run in fp32), generate with that
                 embedding, generate_icl, generate_batch on three sentences,
                 generate_to_file, warmup; RTF per mode, encoder times,
-                resident bytes, and K1, K2, K2g, K3, K4, K5, K6 launched,
-                K4a and K7 not
+                resident bytes, and K1, K2, K3, K4, K5, K6 launched,
+                K2g's kernel, K4a and K7 not
 The line before the last is {"kernels": [...]} and the last is
 {"ok": true, "device": {...}}.
 
@@ -498,10 +509,10 @@ def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool) -> No
     int8_ops = 2 * sum(tkp[f"{p}_q"].numel() for p in ("qkv", "o", "gu", "dn", "ch"))
     nb = w_bytes + (n_valid * 2 + 2) * nl * kvw * esize + 2 * hc * esize + lk.numel() * 4
     attn_ops = 4 * cfg.num_attention_heads * cfg.head_dim * (n_valid + 1) * nl
+    timing = time_ms(lambda: tmk.talker_step_kernel(tkp, embed, ck, pos_t, ws_t, cos, sin, cfg),
+                     20)
     rec.add("talker_step", f"C={c_len} pos={position} window={ws} ({n_valid} slots)", dtype,
-            err, float((lk - lp).abs().max()), TOL_W8A8[dtype],
-            time_ms(lambda: tmk.talker_step_kernel(tkp, embed, ck, pos_t, ws_t, cos, sin, cfg),
-                    20),
+            err, float((lk - lp).abs().max()), TOL_W8A8[dtype], timing,
             time_ms(lambda: tmk.talker_step_plain(tkp, embed, cp, pos_t, ws_t, cos, sin, cfg),
                     3),
             nb, {"int8": int8_ops, "float32": attn_ops},
@@ -511,9 +522,10 @@ def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool) -> No
                   f"{'' if rows_ok else ', need layer 1'}; ring and pos "
                   f"{'ok' if untouched and pos_ok else 'WRONG'})",
             timed=main)
+    return timing[0], w_bytes, (embed, cache, pos_t, ws_t, cos, sin)
 
 
-def phase_megakernels(rec: Record, talker_dense: dict, cp_dense: dict) -> None:
+def phase_megakernels(rec: Record, card: str, talker_dense: dict, cp_dense: dict) -> None:
     import torch
 
     import qwen3_tts_tpu_torch as qt
@@ -536,9 +548,11 @@ def phase_megakernels(rec: Record, talker_dense: dict, cp_dense: dict) -> None:
     # slots) is the main path's case; window start 297 leaves 3 valid slots,
     # so the current token's own term carries about a quarter of each head's
     # attention and a fault in it moves the logits far past TOL_W8A8.
+    k1 = {}
     for dtype in ("float32", "bfloat16"):
         for ws in (99, 297):
-            talker_case(rec, tkp, cfg, gen, getattr(torch, dtype), ws, main=ws == 99)
+            k1[dtype, ws] = talker_case(rec, tkp, cfg, gen, getattr(torch, dtype), ws,
+                                        main=ws == 99)
 
     # K2: one frame, temperature 0.85, with and without the penalty; the
     # plain version replays the kernel's codes and its own picks must match
@@ -552,6 +566,7 @@ def phase_megakernels(rec: Record, talker_dense: dict, cp_dense: dict) -> None:
     cp_ops = (2 * (ng + 1) * sum(ckp[f"{p}_q"].numel() for p in ("qkv", "o", "gu", "dn"))
               + 2 * ckp["head_q"].numel())
     seed = torch.tensor([20240607], device=dev)
+    k2 = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         hidden = torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev).to(dt)
@@ -588,15 +603,18 @@ def phase_megakernels(rec: Record, talker_dense: dict, cp_dense: dict) -> None:
                   + (2 * ng * v if track else 0))
             sk2 = seen.clone() if track else None
             sp2 = seen.clone() if track else None
+            k2[dtype, track] = (time_ms(lambda: cpk.predict_frame_kernel(
+                ckp, hidden, code0, seed, 0.85, sk2, cc), 10), (hidden, code0, seen))
             rec.add("cp_frame", f"penalty={'on' if track else 'off'} T=0.85", dtype, err,
-                    float((lk - lp).abs().max()), TOL_W8A8[dtype],
-                    time_ms(lambda: cpk.predict_frame_kernel(ckp, hidden, code0, seed, 0.85,
-                                                             sk2, cc), 10),
+                    float((lk - lp).abs().max()), TOL_W8A8[dtype], k2[dtype, track][0],
                     time_ms(lambda: cpk.predict_frame_plain(ckp, hidden, code0, seed, 0.85,
                                                             sp2, cc), 2),
                     nb, {"int8": cp_ops},
                     extra=f" (codes: {agree}/{ng} picked alike, {ties} near ties)",
                     timed=track)
+
+    persistent_checks(card, cfg, tkp, ckp, seed, k1[("bfloat16", 99)], k2[("bfloat16", True)],
+                      lay_bytes, head_bytes)
 
     # K2g: the kernel draws exactly the plain version's codes; 100k draws
     # follow softmax(lg / T)
@@ -626,6 +644,88 @@ def phase_megakernels(rec: Record, talker_dense: dict, cp_dense: dict) -> None:
             time_ms(lambda: gs.gumbel_sample_plain(one, gseed, 0.85, 1), 20),
             v * 4 + 16, {"float32": ops})
     torch.cuda.synchronize()
+
+
+def device_kernels(prof) -> list[str]:
+    """Names of the device activities (kernels, copies) a profiler run saw."""
+    import torch
+
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_main,
+                      lay_bytes: int, head_bytes: int) -> None:
+    """K1 and K2 as persistent cooperative launches at 0.6B, bf16 (the main
+    cases): each launch's grid and dynamic shared memory; one device kernel
+    per call (torch.profiler); two runs bit for bit alike; the weight bytes
+    per second each achieves; and the cost of one grid barrier, timed as a
+    launch of n barriers (csrc/grid_barrier.cu), times the barriers a step
+    and a frame make: the design's floor."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import cp_megakernel as cpk
+    from qwen3_tts_tpu_torch.ops.cuda import persistent as ps
+    from qwen3_tts_tpu_torch.ops.cuda import talker_megakernel as tmk
+
+    dev = torch.device("cuda")
+    cc = cfg.code_predictor_config
+    k1_ms, k1_bytes, (embed, cache, pos_t, ws_t, cos, sin) = k1_main
+    (k2_ms, _), (hidden, code0, seen) = k2_main
+    tplan, cplan = ps.talker_plan(cfg, cache["pos"].shape[0], dev), ps.cp_plan(cc, dev)
+    for name, pl in (("talker_step (K1)", tplan), ("cp_frame (K2)", cplan)):
+        log(f"[megakernels] {name}: one cooperative launch of {pl.grid} blocks x {ps.PK_NT} "
+            f"threads, {pl.smem} bytes of dynamic shared memory ({pl.buf} per weight buffer), "
+            f"attention in {pl.nch} chunk(s) of {pl.S} slots per kv head")
+
+    def k1():
+        c = {k: v.clone() for k, v in cache.items()}
+        h, lg, c = tmk.talker_step_kernel(tkp, embed, c, pos_t, ws_t, cos, sin, cfg)
+        return h, lg, c["k2"], c["v2"], c["pos"]
+
+    def k2():
+        lg = torch.empty(cc.num_code_groups - 1, cc.vocab_size, device=dev)
+        codes, esum, s = cpk.predict_frame_kernel(ckp, hidden, code0, seed, 0.85,
+                                                  seen.clone(), cc, logits_out=lg)
+        return codes, esum, s, lg
+
+    calls = (lambda: tmk.talker_step_kernel(tkp, embed, cache, pos_t, ws_t, cos, sin, cfg),
+             lambda: cpk.predict_frame_kernel(ckp, hidden, code0, seed, 0.85, None, cc))
+    for name, fn, call in (("talker_step", k1, calls[0]), ("cp_frame", k2, calls[1])):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                call()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        log(f"[megakernels] {name}: two runs bit-identical: {same}; 4 calls ran "
+            f"{len(kernels)} device kernels ({sorted(set(kernels))}) ({card})")
+        if not same or len(kernels) != 4 or len(set(kernels)) != 1:
+            raise SystemExit(f"{name} is not one deterministic kernel per call")
+
+
+    n_pass = cc.num_code_groups
+    per_step = 5 * cfg.num_hidden_layers
+    per_frame = n_pass * 5 * cc.num_hidden_layers + (n_pass - 1)
+    ps.grid_barriers(16)
+    torch.cuda.synchronize()
+    n = 4000
+    t0 = min(_events_ms(lambda: ps.grid_barriers(0)) for _ in range(5))
+    tn = min(_events_ms(lambda: ps.grid_barriers(n)) for _ in range(5))
+    us = (tn - t0) / n * 1e3
+    log(f"[megakernels] grid barrier: {us:.3f} us each ({n} in one launch of "
+        f"{tplan.grid} blocks, less an empty launch); {per_step} per talker step = "
+        f"{per_step * us / 1e3:.4f} ms, {per_frame} per code-predictor frame = "
+        f"{per_frame * us / 1e3:.4f} ms ({card})")
+    once = lay_bytes + head_bytes
+    streamed = n_pass * lay_bytes + head_bytes
+    log(f"[megakernels] talker_step bf16: {k1_ms:.4f} ms for {k1_bytes} weight bytes = "
+        f"{k1_bytes / k1_ms / 1e9:.3f} TB/s of the card's 3.35; cp_frame bf16: {k2_ms:.4f} ms: "
+        f"{once} weight bytes read once = {once / k2_ms / 1e9:.3f} TB/s, {streamed} streamed "
+        f"over the {n_pass} passes = {streamed / k2_ms / 1e9:.3f} TB/s ({card})")
 
 
 def _counting(gen_mod):
@@ -840,6 +940,7 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> None:
         gen_mod.decode_chunk(pl.params, pl.cp_params, state, pl.config, steps=steps, **kw)
         torch.cuda.synchronize()
     dev_ms = device_us(prof) / 1e3 / steps
+    per_frame = len(device_kernels(prof)) / steps
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -847,8 +948,9 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> None:
             rows.append((t / steps / 1e3, e.count // steps, e.key[:48]))
     rows.sort(reverse=True)
     if dev_ms > 0:
-        log(f"[{label}] frame loop over {steps} frames: wall {wall:.2f} ms/frame, device busy "
-            f"{dev_ms:.2f} ms/frame (profiler), idle {100 * (1 - dev_ms / wall):.0f}% ({card})")
+        log(f"[{label}] frame loop over {steps} frames: wall {wall:.3f} ms/frame, device busy "
+            f"{dev_ms:.3f} ms/frame (profiler), idle {100 * (1 - dev_ms / wall):.1f}%, "
+            f"{per_frame:.1f} device kernels/frame ({card})")
     else:
         log(f"[{label}] frame loop: wall {wall:.2f} ms/frame; device time not measured "
             "(the profiler saw no device activity)")
@@ -890,6 +992,39 @@ def phase_fused_path(card: str) -> dict:
         raise SystemExit("pre_transformer_fused output is wrong")
     check_counts("fused-pretransformer", launches, need=("pre_transformer_fused",),
                  idle=tuple(k for k in KERNELS if k != "pre_transformer_fused"))
+    return launches
+
+
+def phase_sampler_path(card: str) -> dict:
+    """K2g through its entry point, gumbel_sample, at the code predictor's
+    vocabulary: a frame's draws (one per code group) from one seed, sampled
+    and greedy, from fp32 and from bf16 logits; each against its plain
+    version. Counts are set to 0 just before and read just after."""
+    import torch
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.ops.cuda import gumbel_sampler as gs
+
+    dev = torch.device("cuda")
+    cc = qt.Qwen3TTSConfig.standard().code_predictor_config
+    ng, v = cc.num_code_groups - 1, cc.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn(v, generator=gen, device=dev) * 2.0
+    seed = torch.tensor([11], device=dev)
+    cases = [(lg, temp) for lg in (logits, logits.bfloat16()) for temp in (0.85, 0.0)]
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [gs.gumbel_sample(lg, seed, temp, ng) for lg, temp in cases]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    ok = all(o.shape == (ng,) and torch.equal(o, gs.gumbel_sample_plain(lg, seed, temp, ng))
+             for o, (lg, temp) in zip(outs, cases))
+    log(f"[sampler] gumbel_sample: {ng} draws over V={v}, T=0.85 and greedy, fp32 and bf16 "
+        f"logits: the plain version's codes {'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise SystemExit("gumbel_sample disagrees with its plain version")
+    check_counts("sampler", launches, need=("gumbel_sample",),
+                 idle=tuple(k for k in KERNELS if k != "gumbel_sample"))
     return launches
 
 
@@ -1007,10 +1142,9 @@ def phase_modes(card: str, d: str):
     _, m["warmup_s"] = timed(pl.warmup)
     log(f"[{label}] warmup: {m['warmup_s']:.2f} s")
     launches = read_counts()
-    check_counts(label, launches, need=("talker_step", "cp_frame", "gumbel_sample",
-                                        "int8_matmul", "pre_transformer", "upsample_stage",
-                                        "residual_units"),
-                 idle=("packed_matmul", "pre_transformer_fused"))
+    check_counts(label, launches, need=("talker_step", "cp_frame", "int8_matmul",
+                                        "pre_transformer", "upsample_stage", "residual_units"),
+                 idle=("gumbel_sample", "packed_matmul", "pre_transformer_fused"))
 
     # the card's encoders (fp32, TF32 off) against the port's CPU run
     t0 = time.perf_counter()
@@ -1072,21 +1206,23 @@ def main() -> int:
     rec = Record()
     results, launches = {}, {}
     vocoder = ("pre_transformer", "upsample_stage", "residual_units")
-    megakernels = ("talker_step", "cp_frame", "gumbel_sample")
+    megakernels = ("talker_step", "cp_frame")
+    sampler = ("gumbel_sample",)  # its kernel: K2 draws inside its own launch
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         talker_dense, cp_dense, _ = write_model_dir(
             d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(), seed=0)
         log(f"[pipeline] wrote a random-weight 0.6B model dir in "
             f"{time.perf_counter() - t0:.1f} s")
-        phase_megakernels(rec, talker_dense, cp_dense)
+        phase_megakernels(rec, card, talker_dense, cp_dense)
         del talker_dense, cp_dense
         phase_kernels(rec)
         launches["fused_path"] = phase_fused_path(card)
+        launches["sampler_path"] = phase_sampler_path(card)
 
         pl, launches["megakernels"], results["megakernels"] = run_pipeline(
             card, d, "pipeline", None, need=megakernels + ("int8_matmul",) + vocoder,
-            idle=("packed_matmul",))
+            idle=sampler + ("packed_matmul",))
         no_sync_chunk(pl, "pipeline")
         teacher_forced(pl, card)
         vocoder_check(pl)
@@ -1098,7 +1234,7 @@ def main() -> int:
                                                use_cp_megakernel=False)
         pl, launches["k3_path"], results["k3"] = run_pipeline(
             card, d, "k3-pipeline", off, need=("int8_matmul",) + vocoder,
-            idle=megakernels + ("packed_matmul",))
+            idle=megakernels + sampler + ("packed_matmul",))
         no_sync_chunk(pl, "k3-pipeline")
         profile_frames(pl, "k3-pipeline", card, steps=4)
         del pl
@@ -1109,7 +1245,7 @@ def main() -> int:
                                                  use_cp_megakernel=False)
         pl, launches["mixed"], results["mixed"] = run_pipeline(
             card, d, "mixed-pipeline", mixed, need=("packed_matmul",) + vocoder,
-            idle=megakernels + ("int8_matmul",))
+            idle=megakernels + sampler + ("int8_matmul",))
         no_sync_chunk(pl, "mixed-pipeline")
         profile_frames(pl, "mixed-pipeline", card, steps=4)
         mixed_prefill_check(pl, card, "bfloat16")
@@ -1129,7 +1265,7 @@ def main() -> int:
             f"group 64, in {time.perf_counter() - t0:.1f} s")
         pl, launches["prequant"], results["prequant"] = run_pipeline(
             card, d, "prequant-pipeline", None,
-            need=megakernels + ("packed_matmul",) + vocoder, idle=("int8_matmul",))
+            need=megakernels + ("packed_matmul",) + vocoder, idle=sampler + ("int8_matmul",))
         no_sync_chunk(pl, "prequant-pipeline")
         teacher_forced(pl, card, "prequant-pipeline")
         profile_frames(pl, "prequant-pipeline", card)
@@ -1159,6 +1295,8 @@ def main() -> int:
             row["launches"] = launches["prequant"][name] + launches["mixed"][name]
         if name == "pre_transformer_fused":  # its own entry point
             row["launches"] = launches["fused_path"][name]
+        if name == "gumbel_sample":  # its own entry point
+            row["launches"] = launches["sampler_path"][name]
         for path in ("k3_path", "mixed", "prequant", "modes"):
             row[f"launches_{path}"] = launches[path][name]
         rows.append(row)

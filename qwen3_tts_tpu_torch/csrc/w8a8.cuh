@@ -1,5 +1,7 @@
-// Shared phases of the megakernels K1 (talker_step.cu) and K2 (cp_frame.cu):
-// the W8A8 GEMV and the single-token attention over a small KV cache.
+// Shared phases of the persistent megakernels K1 (talker_step.cu) and K2
+// (cp_frame.cu): the W8A8 GEMV and the single-token attention over a small
+// KV cache, as __device__ functions that every block of one cooperative
+// launch runs in turn, with a grid-wide barrier between phases.
 //
 // W8A8 arithmetic, exactly as the reference defines it
 // (qwen3_tts_tpu/ops/pallas/cp_megakernel.py::_w8a8):
@@ -10,15 +12,36 @@
 // __fmul_rn / __fadd_rn so that no multiply-add is contracted and it rounds
 // as the plain PyTorch version does.
 //
-// A GEMV phase is one launch over all SMs: one warp per output row, eight
-// rows per block, ceil(O / 8) blocks. Every block rebuilds the int8 input
-// row itself from the fp32 source (<= 12 KB, read from L2): RMSNorm or
-// SiLU(gate) * up, the row's max |x|, the quantization and sum(xq). That
-// costs a few microseconds of redundant arithmetic and saves a grid-wide
-// barrier per phase. Each lane then streams 16 weight bytes at a time
-// (coalesced along K) against the matching 16 bytes of xq in shared memory.
+// The launch: one block of PK_NT threads per SM (cudaLaunchCooperativeKernel,
+// grid from the occupancy query), persistent over the whole step or frame.
+// Between phases, cooperative_groups' grid.sync().
+//
+// A GEMV phase gives block b the contiguous output rows
+// [b * O / G, (b + 1) * O / G) (ops/cuda/persistent.py::row_span mirrors it):
+// in the row-major [O, K] int8 tree that is one contiguous run of bytes. The
+// weights never depend on activations, so a block fetches its rows for the
+// phases ahead into shared memory while it computes: two buffers of
+// plan.buf bytes, each filled by one cp.async.bulk (global -> shared, 1-D,
+// completing on an mbarrier). The block's rows of every GEMV phase of the
+// launch, cut into tiles of at most plan.buf bytes, form one sequence; tile
+// i goes to buffer i % 2, and tile i + 1 is requested once the block has
+// built its input row for tile i (qt_gemv_phase), so each copy has the rest
+// of one phase, a barrier and the next input row to land, and none is
+// queued ahead of that row's loads. After the barrier a block only reads the
+// activation row (<= 24 KB, from L2), rebuilds the int8 row xq in shared
+// memory (RMSNorm or SiLU(gate) * up, max |x|, quantization) and runs the
+// dot: one warp per row, __dp4a on 16 bytes per lane. At M = 1 a
+// tensor-core tile would waste 15 of its 16 rows, and the int8 work of a
+// 0.6B talker step is ~7 us of dp4a throughput against ~130 us of weight
+// bytes, so tensor cores buy nothing here.
+//
+// Data written inside a launch (activation rows, qkv, the KV cache, logits,
+// partial sums) is read with ld.global.cg (L2, coherent across SMs), never
+// through the non-coherent path; weights are read with __ldg or bulk copies.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "gemm.cuh"
 
@@ -39,16 +62,76 @@ struct QtLayers {
   float eps;
 };
 
+// The launch's shape and dynamic shared memory, from the host
+// (ops/cuda/persistent.py::make_plan): byte offsets into the dynamic shared
+// memory of the two weight buffers ([0, buf) and [buf, 2 buf)), the fp32
+// input row xf [kmax] and RMSNorm gain lnf [kmax], the int8 row xq [kmax],
+// the fp32 token row xrow [hc] and the attention scratch (carved at the
+// top of qt_attention_phase; persistent.py::att_floats sizes it);
+// and the attention split.
+struct QtPlan {
+  int grid, smem, buf, xf, lnf, xq, xrow, att;
+  int nch, S;  // chunks of the cache per kv head, slots per chunk
+};
+
 namespace {
 
-constexpr int W8_WARPS = 8, W8_NT = W8_WARPS * 32, W8_KMAX = 8192;
-constexpr int ATT_NT = 512, ATT_UNROLL = 4;
+namespace cg = cooperative_groups;
 
-// How a GEMV block builds its input row x[0:K] from `src`.
+constexpr int PK_NT = 512, PK_WARPS = PK_NT / 32;
+
+__device__ __forceinline__ void qt_grid_sync() { cg::this_grid().sync(); }
+
+__device__ __forceinline__ float qt_ldcg(const void* p, long long i, int bf16) {
+  return bf16 ? __bfloat162float(__ushort_as_bfloat16(
+                    __ldcg(reinterpret_cast<const unsigned short*>(p) + i)))
+              : __ldcg(reinterpret_cast<const float*>(p) + i);
+}
+
+// ---- bulk copies into shared memory, completing on an mbarrier ----
+
+__device__ __forceinline__ uint32_t qt_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void qt_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(qt_smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void qt_mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// One thread: copy `bytes` (a multiple of 16, both addresses 16-aligned)
+// from global to shared; the barrier's phase completes when they land.
+__device__ __forceinline__ void qt_bulk_load(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(qt_smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(qt_smem_addr(dst)), "l"(src), "r"(bytes), "r"(qt_smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void qt_mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(qt_smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// ---- the W8A8 GEMV phase ----
+
+// How a GEMV phase builds its input row x[0:K] from `src`.
 enum QtVecMode { QT_VEC_PLAIN = 0, QT_VEC_RMS = 1, QT_VEC_SILU = 2 };
 
 struct QtGemv {
   const float* src;  // fp32 input; QT_VEC_SILU reads [2K]: gate then up
+  int local;         // src lies in this block's shared memory (else ld.cg)
   int mode;
   const float* ln;   // RMSNorm gain [K] (QT_VEC_RMS)
   float eps;
@@ -58,7 +141,15 @@ struct QtGemv {
   const float* m;    // [O]
   float* dst;        // [O] fp32
   int residual;      // dst[o] = dst[o] + y instead of dst[o] = y
+  void* x_out;       // or null: block 0 also writes the input row x here
+  int x_out_bf16;
 };
+
+// Block b's rows [lo, hi) of a phase with O rows over G blocks.
+__device__ __forceinline__ void qt_span(int O, int b, int& lo, int& hi) {
+  lo = (int)((long long)b * O / gridDim.x);
+  hi = (int)((long long)(b + 1) * O / gridDim.x);
+}
 
 __device__ __forceinline__ float qt_silu(float g) { return g / (1.f + expf(-g)); }
 
@@ -73,265 +164,501 @@ __device__ __forceinline__ float qt_block_max(float v, float* sh) {
   return qt_warp_max(v);
 }
 
-// x[i] of the GEMV input row (rinv = 1/sqrt(mean(src^2) + eps) for RMS)
-__device__ __forceinline__ float qt_vec_x(const QtGemv& g, int i, float rinv) {
-  if (g.mode == QT_VEC_RMS) return __fmul_rn(__fmul_rn(g.src[i], rinv), g.ln[i]);
-  if (g.mode == QT_VEC_SILU) return __fmul_rn(qt_silu(g.src[i]), g.src[g.K + i]);
-  return g.src[i];
-}
+// The block's weight pipeline: tile i of its sequence lands in buffer i % 2;
+// at most tiles i and i + 1 are in flight. n_used is kept alike by every
+// thread; the fetch cursor (n_fetched tiles so far) by thread 0 only.
+struct QtPipe {
+  unsigned char* buf0;
+  uint64_t* bar;  // [2] in shared memory
+  int buf;        // bytes per buffer
+  int n_used;
+  int g_fetch, k_fetch, n_fetched;
+};
 
-// 1 / sqrt(mean(v^2) + eps) over v[0:n], for every thread of the block
-__device__ __forceinline__ float qt_block_rinv(const float* v, int n, float eps, float* sh) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) ss = fmaf(v[i], v[i], ss);
-  const float ms = qt_block_sum(ss, sh) / (float)n;
-  return 1.f / sqrtf(ms + eps);
-}
-
-__global__ void __launch_bounds__(W8_NT) qt_w8a8_gemv_kernel(const QtGemv g) {
-  __shared__ __align__(16) int8_t xq[W8_KMAX];
-  __shared__ float sh[32];
-  const int K = g.K;
-  const float rinv = g.mode == QT_VEC_RMS ? qt_block_rinv(g.src, K, g.eps, sh) : 1.f;
-  float ax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) ax = fmaxf(ax, fabsf(qt_vec_x(g, i, rinv)));
-  ax = qt_block_max(ax, sh);
-  const float sx = fmaxf(ax / 127.f, 1e-12f);
-  float part = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    const float x = qt_vec_x(g, i, rinv);
-    const float r = fminf(fmaxf(rintf(x / sx), -127.f), 127.f);
-    xq[i] = (int8_t)r;
-    part += r;
+// Thread 0: request the block's next tile of the GEMV sequence `sch`, if any.
+template <class Sched>
+__device__ void qt_fetch(const Sched& sch, QtPipe& p) {
+  while (p.g_fetch < sch.n_gemv) {
+    const QtGemv d = sch.gemv(p.g_fetch);
+    int lo, hi;
+    qt_span(d.O, blockIdx.x, lo, hi);
+    const int T = p.buf / d.K;
+    const int r0 = lo + p.k_fetch * T;
+    if (r0 < hi) {
+      const int rows = min(T, hi - r0), b = p.n_fetched & 1;
+      qt_bulk_load(p.buf0 + (size_t)b * p.buf, d.q + (long long)r0 * d.K,
+                   (uint32_t)rows * d.K, &p.bar[b]);
+      ++p.k_fetch;
+      ++p.n_fetched;
+      return;
+    }
+    ++p.g_fetch;
+    p.k_fetch = 0;
   }
-  const float sum_xq = qt_block_sum(part, sh);  // exact: integers below 2^24
-  __syncthreads();
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = blockIdx.x * W8_WARPS + warp; o < g.O; o += gridDim.x * W8_WARPS) {
-    const int8_t* row = g.q + (long long)o * K;
-    int acc = 0;
-#pragma unroll 4
-    for (int k = lane * 16; k < K; k += 32 * 16) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(row + k));
-      const int4 a = *reinterpret_cast<const int4*>(xq + k);
-      acc = __dp4a(w.x, a.x, acc);
-      acc = __dp4a(w.y, a.y, acc);
-      acc = __dp4a(w.z, a.z, acc);
-      acc = __dp4a(w.w, a.w, acc);
+template <class Sched>
+__device__ QtPipe qt_pipe_start(const Sched& sch, unsigned char* smem, uint64_t* bar,
+                                const QtPlan& plan) {
+  QtPipe p{smem, bar, plan.buf, 0, 0, 0, 0};
+  if (threadIdx.x == 0) {
+    qt_mbar_init(&bar[0]);
+    qt_mbar_init(&bar[1]);
+    qt_mbar_fence_init();
+    qt_fetch(sch, p);
+  }
+  __syncthreads();
+  return p;
+}
+
+__device__ __forceinline__ float qt_src(const QtGemv& d, int i) {
+  return d.local ? d.src[i] : __ldcg(d.src + i);
+}
+
+// Build x (RMSNorm, SiLU(gate) * up or as is) into xf, then xq; returns sx.
+// Each thread loads U elements of the row (and of the RMSNorm gain, into
+// lnf) before it stores any, so that their loads are in flight together.
+// Block 0 writes x to d.x_out when set.
+__device__ float qt_prologue(const QtGemv& d, float* xf, float* lnf, int8_t* xq, float* red) {
+  constexpr int U = 4;  // elements a thread loads before it stores any
+  const int K = d.K;
+  const bool rms = d.mode == QT_VEC_RMS, silu = d.mode == QT_VEC_SILU;
+  float ss = 0.f, ax = 0.f;
+  for (int i0 = threadIdx.x; i0 < K; i0 += U * blockDim.x) {
+    float a[U], b[U], g[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      a[u] = i < K ? qt_src(d, i) : 0.f;
+      b[u] = i < K && silu ? qt_src(d, K + i) : 0.f;
+      g[u] = i < K && rms ? __ldg(d.ln + i) : 0.f;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float y = __fadd_rn(__fmul_rn(__fmul_rn(sx, g.s[o]), (float)acc),
-                                __fmul_rn(g.m[o], __fmul_rn(sx, sum_xq)));
-      g.dst[o] = g.residual ? __fadd_rn(g.dst[o], y) : y;
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= K) break;
+      const float v = silu ? __fmul_rn(qt_silu(a[u]), b[u]) : a[u];
+      xf[i] = v;
+      lnf[i] = g[u];
+      ss = fmaf(v, v, ss);
+      ax = fmaxf(ax, fabsf(v));
     }
+  }
+  if (rms) {
+    const float rinv = 1.f / sqrtf(qt_block_sum(ss, red) / (float)K + d.eps);
+    ax = 0.f;
+    for (int i = threadIdx.x; i < K; i += blockDim.x) {
+      const float x = __fmul_rn(__fmul_rn(xf[i], rinv), lnf[i]);
+      xf[i] = x;
+      ax = fmaxf(ax, fabsf(x));
+    }
+  }
+  ax = qt_block_max(ax, red);
+  if (d.x_out != nullptr && blockIdx.x == 0)
+    for (int i = threadIdx.x; i < K; i += blockDim.x) qt_st(d.x_out, i, xf[i], d.x_out_bf16);
+  const float sx = fmaxf(ax / 127.f, 1e-12f);
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    xq[i] = (int8_t)fminf(fmaxf(rintf(xf[i] / sx), -127.f), 127.f);
+  __syncthreads();
+  return sx;
+}
+
+// The epilogue's operands of a tile's rows, loaded ahead: lane i of warp w
+// holds s, m (and dst, for a residual) of the tile's row w + PK_WARPS * i.
+struct QtRowOps {
+  float s, m, d;
+};
+
+__device__ __forceinline__ QtRowOps qt_row_ops(const QtGemv& g, int r0, int rows) {
+  const int r = (threadIdx.x >> 5) + PK_WARPS * (threadIdx.x & 31);
+  QtRowOps o{0.f, 0.f, 0.f};
+  if (r < rows) {
+    o.s = __ldg(g.s + r0 + r);
+    o.m = __ldg(g.m + r0 + r);
+    if (g.residual) o.d = __ldcg(g.dst + r0 + r);
+  }
+  return o;
+}
+
+// One GEMV phase for this block: its rows, tile by tile from the buffers.
+// The first tile's epilogue operands are loaded before the input row is
+// built, so their latency hides behind it. Before it waits for tile i, the
+// block requests tile i + 1 (into the buffer tile i - 1 has left): after the
+// input row is built, so that the copy does not queue ahead of the row's
+// loads, and with the rest of this phase, a barrier and the next row to land.
+template <class Sched>
+__device__ void qt_gemv_phase(const Sched& sch, QtPipe& p, const QtGemv& d, float* xf,
+                              float* lnf, int8_t* xq, float* red) {
+  int lo, hi;
+  qt_span(d.O, blockIdx.x, lo, hi);
+  if (lo >= hi && (d.x_out == nullptr || blockIdx.x != 0)) return;
+  const int K = d.K, T = p.buf / K, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  QtRowOps ops = qt_row_ops(d, lo, min(T, hi - lo));
+  const float sx = qt_prologue(d, xf, lnf, xq, red);
+  if (lo >= hi) return;
+  const int4* xq4 = reinterpret_cast<const int4*>(xq);
+  int isum = 0;  // sum(xq), exact, in every warp
+  for (int c = lane; c < K / 16; c += 32) {
+    const int4 a = xq4[c];
+    isum = __dp4a(a.x, 0x01010101, isum);
+    isum = __dp4a(a.y, 0x01010101, isum);
+    isum = __dp4a(a.z, 0x01010101, isum);
+    isum = __dp4a(a.w, 0x01010101, isum);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) isum += __shfl_xor_sync(0xffffffffu, isum, off);
+  const float sxs = __fmul_rn(sx, (float)isum);
+  for (int r0 = lo; r0 < hi; r0 += T) {
+    const int b = p.n_used & 1, rows = min(T, hi - r0);
+    if (r0 != lo) ops = qt_row_ops(d, r0, rows);
+    if (threadIdx.x == 0 && p.n_fetched < p.n_used + 2) qt_fetch(sch, p);
+    qt_mbar_wait(&p.bar[b], (uint32_t)((p.n_used >> 1) & 1));
+    const unsigned char* wt = p.buf0 + (size_t)b * p.buf;
+    for (int r = warp, i = 0; r < rows; r += PK_WARPS, ++i) {
+      const int4* row = reinterpret_cast<const int4*>(wt + (size_t)r * K);
+      int acc = 0;
+#pragma unroll 4
+      for (int c = lane; c < K / 16; c += 32) {
+        const int4 w = row[c], a = xq4[c];
+        acc = __dp4a(w.x, a.x, acc);
+        acc = __dp4a(w.y, a.y, acc);
+        acc = __dp4a(w.z, a.z, acc);
+        acc = __dp4a(w.w, a.w, acc);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      const int o = r0 + r;
+      float so, mo, dv;
+      if (i < 32) {  // warp-uniform
+        so = __shfl_sync(0xffffffffu, ops.s, i);
+        mo = __shfl_sync(0xffffffffu, ops.m, i);
+        dv = __shfl_sync(0xffffffffu, ops.d, i);
+      } else {
+        so = __ldg(d.s + o);
+        mo = __ldg(d.m + o);
+        dv = d.residual ? __ldcg(d.dst + o) : 0.f;
+      }
+      if (lane == 0) {
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(sx, so), (float)acc), __fmul_rn(mo, sxs));
+        d.dst[o] = d.residual ? __fadd_rn(dv, y) : y;
+      }
+    }
+    __syncthreads();  // every warp is done with buffer b
+    ++p.n_used;
   }
 }
 
-int qt_gemv(const QtGemv& g, cudaStream_t st) {
-  if (g.K % 16 != 0 || g.K > W8_KMAX || g.O <= 0) return (int)cudaErrorInvalidValue;
-  qt_w8a8_gemv_kernel<<<(g.O + W8_WARPS - 1) / W8_WARPS, W8_NT, 0, st>>>(g);
-  return (int)cudaGetLastError();
+// GEMV `kind` (0 qkv, 1 o, 2 gate/up, 3 down) of decoder layer l; the qkv
+// GEMV of a token's first layer reads the token row `x0` (shared memory).
+__device__ QtGemv qt_layer_gemv(const QtLayers& w, int l, int kind, const float* x0) {
+  const long long hc = w.hc, qw = (long long)(w.nq + 2 * w.nkv) * w.hd;
+  const long long aw = (long long)w.nq * w.hd, gw = 2LL * w.inter;
+  QtGemv d{};
+  d.eps = w.eps;
+  switch (kind) {
+    case 0:
+      d.src = l == 0 ? x0 : w.h; d.local = l == 0; d.mode = QT_VEC_RMS; d.ln = w.in_ln + l * hc;
+      d.K = (int)hc; d.O = (int)qw; d.q = w.qkv_q + l * qw * hc; d.s = w.qkv_s + l * qw;
+      d.m = w.qkv_m + l * qw; d.dst = w.qkv;
+      break;
+    case 1:
+      d.src = w.attn; d.mode = QT_VEC_PLAIN; d.K = (int)aw; d.O = (int)hc;
+      d.q = w.o_q + l * hc * aw; d.s = w.o_s + l * hc; d.m = w.o_m + l * hc; d.dst = w.h;
+      d.residual = 1;
+      break;
+    case 2:
+      d.src = w.h; d.mode = QT_VEC_RMS; d.ln = w.post_ln + l * hc; d.K = (int)hc; d.O = (int)gw;
+      d.q = w.gu_q + l * gw * hc; d.s = w.gu_s + l * gw; d.m = w.gu_m + l * gw; d.dst = w.gu;
+      break;
+    default:
+      d.src = w.gu; d.mode = QT_VEC_SILU; d.K = w.inter; d.O = (int)hc;
+      d.q = w.dn_q + l * hc * w.inter; d.s = w.dn_s + l * hc; d.m = w.dn_m + l * hc;
+      d.dst = w.h; d.residual = 1;
+      break;
+  }
+  return d;
 }
 
-// One token's attention for one layer; one block (512 threads) per query
-// head.
-//
-// Talker (cp_t < 0): a ring cache [C, nkv * hd] (bf16 or fp32) whose slots
-// hold absolute positions pos[C]; a slot counts when pos >= 0 and pos >=
-// window_start, and the current token enters as a separate fp32 column (not
-// the rounded row written into the ring): out = (sum_c e_c v_c + e_cur v) /
-// (sum_c e_c + e_cur). The new K/V rows go into slot position % C, which
-// stays masked (its pos is the old one) until the caller writes pos after
-// the last layer.
-// Code predictor (cp_t >= 0): an fp32 cache of 16 slots; the token is
-// written to slot cp_t and slots 0..cp_t count; p = softmax, out = p . v.
-// The token's own K/V come from shared memory, not from the cache another
-// block may still be writing.
-struct QtAttn {
-  const float* qkv;   // [(nq + 2 nkv) hd] fp32: q | k | v of this token
+// The token row x (fp32, shared memory) starts the residual stream: each
+// block writes its rows of the o / down phases' span into w.h, the rows it
+// alone adds to later.
+__device__ __forceinline__ void qt_start_row(const QtLayers& w, const float* x) {
+  int lo, hi;
+  qt_span(w.hc, blockIdx.x, lo, hi);
+  for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) w.h[i] = x[i];
+}
+
+// ---- the attention phase ----
+
+// One token's attention for one layer, with its K/V rows written into the
+// cache. Work item (kv head j, chunk c) covers cache slots [c S, c S + S) of
+// the n slots and both of j's query heads (a block per item, a warp per
+// slot): q and k RMS-normed and rotated (rotate-half; a warp per head, its
+// row and gain loaded together), the chunk's K/V rows staged in shared
+// memory as fp32 (16-byte loads), scores, and the chunk's max, sum of
+// exponentials and weighted sum of V. Chunk 0 also holds the current token
+// as a column of its own, from fp32 registers, not from the rounded row it
+// writes into slot `slot` (which stays masked for the talker until the
+// caller writes pos[slot] after the last layer). With one chunk per head
+// the block writes out = acc / sum; with more, it writes its partials and
+// the block that finishes a head's last chunk (an integer counter per kv
+// head, reset after use) combines them in chunk order: no float atomics,
+// the same result every run.
+// Talker (masked): a slot counts when pos >= 0 and pos >= window start.
+// Code predictor: slots 0..n-1 all count (n = the token's index t).
+// hd is a multiple of 8 and at most ATT_HD_MAX.
+constexpr int ATT_HD_MAX = 256;
+
+struct QtAtt {
+  const float* qkv;   // [(nq + 2 nkv) hd]: q | k | v of this token
   const float* q_ln;  // [hd]
-  const float* k_ln;  // [hd]
-  const float* cos;   // [hd] for this position
-  const float* sin;
+  const float* k_ln;
   void* kc;           // this layer's cache [C, nkv * hd]
   void* vc;
   int kv_bf16;
-  const long long* pos;       // talker: [C]
-  const long long* position;  // talker: device scalar
-  const long long* ws;        // talker: device scalar (window start)
-  int cp_t;
-  int C, nq, nkv, hd;
+  int masked;
+  const long long* pos;  // [C] (masked)
+  long long ws;          // window start (masked)
+  int n;                 // cache slots to attend
+  long long slot;        // where this token's rows go
+  int nq, nkv, hd;
   float eps, scale;
-  float* out;  // [nq * hd]
+  int nch, S;
+  float* part;  // [nq, nch, hd + 2] (nch > 1)
+  int* cnt;     // [nkv] (nch > 1), zero between uses
+  float* out;   // [nq * hd]
 };
 
-__global__ void __launch_bounds__(ATT_NT) qt_attention_kernel(const QtAttn a) {
-  extern __shared__ float sc[];  // [C] scores, then weights
-  __shared__ float qs[256], ks[256], vs[256], red[ATT_NT];  // hd <= 256
-  __shared__ float sh[32];
-  const int i = blockIdx.x, hd = a.hd, group = a.nq / a.nkv, j = i / group;
-  const int tid = threadIdx.x, kvw = a.nkv * hd;
-  const bool cp = a.cp_t >= 0;
-  const float* qr = a.qkv + (long long)i * hd;
-  const float* kr = a.qkv + (long long)a.nq * hd + j * hd;
-  const float* vr = a.qkv + (long long)(a.nq + a.nkv) * hd + j * hd;
+// The position's cos / sin [hd] into the head of the attention scratch,
+// where every attention phase of the step (or of the token pass) reads them.
+__device__ __forceinline__ void qt_stage_rope(float* sm, const float* cos, const float* sin,
+                                              int hd) {
+  for (int e = threadIdx.x; e < hd; e += blockDim.x) {
+    sm[e] = __ldg(cos + e);
+    sm[hd + e] = __ldg(sin + e);
+  }
+}
 
-  // per-head RMSNorm, then RoPE (rotate-half)
-  const float rq = qt_block_rinv(qr, hd, a.eps, sh);
-  const float rk = qt_block_rinv(kr, hd, a.eps, sh);
-  float qn = 0.f, kn = 0.f;
-  if (tid < hd) {
-    qn = __fmul_rn(__fmul_rn(qr[tid], rq), a.q_ln[tid]);
-    kn = __fmul_rn(__fmul_rn(kr[tid], rk), a.k_ln[tid]);
-    qs[tid] = qn;
-    ks[tid] = kn;
-    vs[tid] = vr[tid];
-  }
-  __syncthreads();
-  float qv = 0.f, kv = 0.f;
-  if (tid < hd) {
-    const int h2 = hd / 2;
-    const float rq_ = tid < h2 ? -qs[tid + h2] : qs[tid - h2];
-    const float rk_ = tid < h2 ? -ks[tid + h2] : ks[tid - h2];
-    qv = __fadd_rn(__fmul_rn(qn, a.cos[tid]), __fmul_rn(rq_, a.sin[tid]));
-    kv = __fadd_rn(__fmul_rn(kn, a.cos[tid]), __fmul_rn(rk_, a.sin[tid]));
-  }
-  __syncthreads();
-  if (tid < hd) {
-    qs[tid] = qv;
-    ks[tid] = kv;
-  }
-  long long slot;
-  int n;
-  if (cp) {
-    slot = a.cp_t;
-    n = a.cp_t + 1;
-  } else {
-    slot = *a.position % a.C;
-    n = a.C;
-  }
-  if (tid < hd && i % group == 0) {
-    qt_st(a.kc, slot * kvw + j * hd + tid, kv, a.kv_bf16);
-    qt_st(a.vc, slot * kvw + j * hd + tid, vs[tid], a.kv_bf16);
-  }
-  __syncthreads();
+// 16 bytes of a cache row (8 bf16 or 4 fp32 values) from element `at`.
+__device__ __forceinline__ int4 qt_ld16(const void* src, long long at, int bf16) {
+  return __ldcg(reinterpret_cast<const int4*>(reinterpret_cast<const char*>(src) +
+                                              (at << (bf16 ? 1 : 2))));
+}
 
-  // scores: each warp takes ATT_UNROLL slots at a time (their loads in
-  // flight together), lanes along hd
-  const int lane = tid & 31, warp = tid >> 5, nw = ATT_NT / 32;
-  const long long ws = cp ? 0 : *a.ws;
-  for (int c0 = warp * ATT_UNROLL; c0 < n; c0 += nw * ATT_UNROLL) {
-    float d[ATT_UNROLL];
+// Those 16 bytes as fp32 values into dst.
+__device__ __forceinline__ void qt_unpack16(int4 v, int bf16, float* dst) {
+  const uint32_t w[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
 #pragma unroll
-    for (int u = 0; u < ATT_UNROLL; ++u) {
-      const int c = c0 + u;
-      d[u] = 0.f;
-      if (c >= n) continue;
-      if (cp && c == a.cp_t) {
-        for (int e = lane; e < hd; e += 32) d[u] = fmaf(qs[e], ks[e], d[u]);
+  for (int i = 0; i < 4; ++i) {
+    if (bf16) {
+      dst[2 * i] = __uint_as_float(w[i] << 16);
+      dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      dst[i] = __uint_as_float(w[i]);
+    }
+  }
+}
+
+__device__ void qt_attention_phase(const QtAtt& a, float* sm) {
+  const int hd = a.hd, group = a.nq / a.nkv, kvw = a.nkv * hd, S = a.S, nch = a.nch;
+  const float* cs = sm;             // [hd] cos, [hd] sin (qt_stage_rope)
+  const float* sn = sm + hd;
+  float* qs = sm + 2 * hd;          // [group, hd] normed, rotated q
+  float* ks = qs + group * hd;      // [hd] the token's k, normed and rotated
+  float* vs = ks + hd;              // [hd] its v
+  float* tmp = vs + hd;             // [group + 1, hd] q and k before RoPE
+  float* sc = tmp + (group + 1) * hd;  // [group, S] scores, then exponentials
+  float* st = sc + group * S;       // [group, 4]: max, sum, own score, own weight
+  float* kst = st + 4 * group;      // [S, hd]; the combine's chunk weights
+  float* vst = kst + S * hd;        // [S, hd]
+  int* last = reinterpret_cast<int*>(vst + S * hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, h2 = hd / 2;
+  const int vec = a.kv_bf16 ? 8 : 4;
+  for (int item = blockIdx.x; item < a.nkv * nch; item += gridDim.x) {
+    const int j = item / nch, c = item % nch;
+    const int s0 = c * S, ns = max(min(a.n - s0, S), 0);
+    // every load of the item is in flight before its first shared-memory
+    // store: the chunk's first 16 bytes of K and V per thread, the token's
+    // v, then (below) each warp's q or k row with its gain
+    auto slot_at = [&](int u) { return (long long)(s0 + u / hd) * kvw + j * hd + u % hd; };
+    const int u0 = tid * vec;
+    int4 k16 = make_int4(0, 0, 0, 0), v16 = k16;
+    if (u0 < ns * hd) {
+      k16 = qt_ld16(a.kc, slot_at(u0), a.kv_bf16);
+      v16 = qt_ld16(a.vc, slot_at(u0), a.kv_bf16);
+    }
+    const float vt = tid < hd ? __ldcg(a.qkv + (long long)(a.nq + a.nkv + j) * hd + tid) : 0.f;
+    for (int r = warp; r <= group; r += PK_WARPS) {  // q heads of j, then k_j
+      const float* src = a.qkv + (long long)(r < group ? j * group + r : a.nq + j) * hd;
+      const float* gain = r < group ? a.q_ln : a.k_ln;
+      float v[ATT_HD_MAX / 32], g[ATT_HD_MAX / 32], ssq = 0.f;
+#pragma unroll
+      for (int u = 0; u < ATT_HD_MAX / 32; ++u) {
+        const int e = lane + 32 * u;
+        v[u] = e < hd ? __ldcg(src + e) : 0.f;
+        g[u] = e < hd ? __ldg(gain + e) : 0.f;
+        ssq = fmaf(v[u], v[u], ssq);
+      }
+      const float rinv = 1.f / sqrtf(qt_warp_sum(ssq) / (float)hd + a.eps);
+      float* t = tmp + r * hd;
+#pragma unroll
+      for (int u = 0; u < ATT_HD_MAX / 32; ++u)
+        if (lane + 32 * u < hd) t[lane + 32 * u] = __fmul_rn(__fmul_rn(v[u], rinv), g[u]);
+      __syncwarp();
+      float* dst = r < group ? qs + r * hd : ks;
+      for (int e = lane; e < hd; e += 32) {
+        const float rot = e < h2 ? -t[e + h2] : t[e - h2];
+        dst[e] = __fadd_rn(__fmul_rn(t[e], cs[e]), __fmul_rn(rot, sn[e]));
+      }
+    }
+    if (tid < hd) vs[tid] = vt;
+    for (int e = tid + PK_NT; e < hd; e += PK_NT)
+      vs[e] = __ldcg(a.qkv + (long long)(a.nq + a.nkv + j) * hd + e);
+    if (u0 < ns * hd) {
+      qt_unpack16(k16, a.kv_bf16, kst + u0);
+      qt_unpack16(v16, a.kv_bf16, vst + u0);
+    }
+    for (int u = u0 + PK_NT * vec; u < ns * hd; u += PK_NT * vec) {
+      qt_unpack16(qt_ld16(a.kc, slot_at(u), a.kv_bf16), a.kv_bf16, kst + u);
+      qt_unpack16(qt_ld16(a.vc, slot_at(u), a.kv_bf16), a.kv_bf16, vst + u);
+    }
+    __syncthreads();
+    if (c == 0)
+      for (int e = tid; e < hd; e += PK_NT) {
+        qt_st(a.kc, a.slot * kvw + j * hd + e, ks[e], a.kv_bf16);
+        qt_st(a.vc, a.slot * kvw + j * hd + e, vs[e], a.kv_bf16);
+      }
+    for (int s = warp; s < ns; s += PK_WARPS) {
+      bool valid = true;
+      if (a.masked) {
+        const long long ps = __ldcg(a.pos + s0 + s);
+        valid = ps >= 0 && ps >= a.ws;
+      }
+      for (int r = 0; r < group; ++r) {
+        float d = 0.f;
+        for (int e = lane; e < hd; e += 32) d = fmaf(qs[r * hd + e], kst[s * hd + e], d);
+        d = qt_warp_sum(d) * a.scale;
+        if (lane == 0) sc[r * S + s] = valid ? d : -1e30f;
+      }
+    }
+    if (c == 0)
+      for (int r = warp; r < group; r += PK_WARPS) {
+        float d = 0.f;
+        for (int e = lane; e < hd; e += 32) d = fmaf(qs[r * hd + e], ks[e], d);
+        d = qt_warp_sum(d) * a.scale;
+        if (lane == 0) st[r * 4 + 2] = d;
+      }
+    __syncthreads();
+    for (int r = warp; r < group; r += PK_WARPS) {
+      float mx = -INFINITY;
+      for (int s = lane; s < ns; s += 32) mx = fmaxf(mx, sc[r * S + s]);
+      mx = qt_warp_max(mx);
+      if (c == 0) mx = fmaxf(mx, st[r * 4 + 2]);
+      float l = 0.f;
+      for (int s = lane; s < ns; s += 32) {
+        const float e = expf(sc[r * S + s] - mx);
+        sc[r * S + s] = e;
+        l += e;
+      }
+      l = qt_warp_sum(l);
+      const float own = c == 0 ? expf(st[r * 4 + 2] - mx) : 0.f;
+      if (lane == 0) {
+        st[r * 4] = mx;
+        st[r * 4 + 1] = l + own;
+        st[r * 4 + 3] = own;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < group * hd; i += PK_NT) {
+      const int r = i / hd, e = i % hd, head = j * group + r;
+      float acc = 0.f;
+      for (int s = 0; s < ns; ++s) acc = fmaf(sc[r * S + s], vst[s * hd + e], acc);
+      if (c == 0) acc = fmaf(st[r * 4 + 3], vs[e], acc);
+      if (nch == 1) {
+        a.out[(long long)head * hd + e] = acc / st[r * 4 + 1];
       } else {
-        for (int e = lane; e < hd; e += 32)
-          d[u] = fmaf(qs[e], qt_ld(a.kc, (long long)c * kvw + j * hd + e, a.kv_bf16), d[u]);
+        float* pp = a.part + ((long long)head * nch + c) * (hd + 2);
+        pp[e] = acc;
+        if (e == 0) {
+          pp[hd] = st[r * 4];
+          pp[hd + 1] = st[r * 4 + 1];
+        }
       }
     }
-#pragma unroll
-    for (int u = 0; u < ATT_UNROLL; ++u) {
-      const int c = c0 + u;
-      const float s = qt_warp_sum(d[u]) * a.scale;
-      if (lane == 0 && c < n) {
-        const bool valid = cp || (a.pos[c] >= 0 && a.pos[c] >= ws);
-        sc[c] = valid ? s : -1e30f;
+    if (nch > 1) {
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) *last = atomicAdd(a.cnt + j, 1) == nch - 1;
+      __syncthreads();
+      if (*last) {  // combine j's chunks: their max and sum into shared memory first
+        __threadfence();
+        float* cw = kst;  // [group, nch] chunk weights, then [group] sums in st
+        const float* pj = a.part + (long long)j * group * nch * (hd + 2);
+        for (int i = tid; i < group * nch; i += PK_NT) {
+          cw[i] = __ldcg(pj + (long long)i * (hd + 2) + hd);
+          vst[i] = __ldcg(pj + (long long)i * (hd + 2) + hd + 1);
+        }
+        __syncthreads();
+        for (int r = warp; r < group; r += PK_WARPS) {
+          float mx = -INFINITY;
+          for (int k = lane; k < nch; k += 32) mx = fmaxf(mx, cw[r * nch + k]);
+          mx = qt_warp_max(mx);
+          float l = 0.f;
+          for (int k = lane; k < nch; k += 32) {
+            const float wk = expf(cw[r * nch + k] - mx);
+            cw[r * nch + k] = wk;
+            l = fmaf(vst[r * nch + k], wk, l);
+          }
+          l = qt_warp_sum(l);
+          if (lane == 0) st[r * 4 + 1] = l;
+        }
+        __syncthreads();
+        for (int i = tid; i < group * hd; i += PK_NT) {
+          const int r = i / hd, e = i % hd;
+          const float* pp = pj + (long long)r * nch * (hd + 2) + e;
+          float acc = 0.f;
+#pragma unroll 8
+          for (int k = 0; k < nch; ++k) acc = fmaf(__ldcg(pp + k * (hd + 2)), cw[r * nch + k], acc);
+          a.out[(long long)(j * group + r) * hd + e] = acc / st[r * 4 + 1];
+        }
+        if (tid == 0) a.cnt[j] = 0;
       }
     }
-  }
-  float cur = 0.f;
-  if (!cp) cur = qt_block_sum(tid < hd ? qs[tid] * ks[tid] : 0.f, sh) * a.scale;
-  __syncthreads();
-  float mx = -INFINITY;
-  for (int c = tid; c < n; c += ATT_NT) mx = fmaxf(mx, sc[c]);
-  mx = qt_block_max(mx, sh);
-  if (!cp) mx = fmaxf(mx, cur);
-  float part = 0.f;
-  for (int c = tid; c < n; c += ATT_NT) {
-    const float e = expf(sc[c] - mx);
-    sc[c] = e;
-    part += e;
-  }
-  const float e_cur = cp ? 0.f : expf(cur - mx);
-  const float denom = qt_block_sum(part, sh) + e_cur;  // syncs: sc complete
-  if (cp) {
-    for (int c = tid; c < n; c += ATT_NT) sc[c] = sc[c] / denom;
     __syncthreads();
   }
-
-  // out[d]: ATT_NT / hd slices of the slots per d, then a sum of slices
-  const int d = tid % hd, slice = tid / hd, ns = ATT_NT / hd;
-  float acc = 0.f;
-  if (slice < ns) {
-#pragma unroll 8
-    for (int c = slice; c < n; c += ns) {
-      const float v = (cp && c == a.cp_t) ? vs[d]
-                                          : qt_ld(a.vc, (long long)c * kvw + j * hd + d, a.kv_bf16);
-      acc = fmaf(sc[c], v, acc);
-    }
-  }
-  red[tid] = acc;
-  __syncthreads();
-  if (tid < hd) {
-    float s = 0.f;
-    for (int k = 0; k < ns; ++k) s += red[k * hd + tid];
-    a.out[(long long)i * hd + tid] = cp ? s : (s + e_cur * vs[tid]) / denom;
-  }
 }
 
-int qt_attention(const QtAttn& a, cudaStream_t st) {
-  if (a.hd > 256 || ATT_NT % a.hd != 0 || a.nq % a.nkv != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(a.cp_t >= 0 ? a.cp_t + 1 : a.C) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qt_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  qt_attention_kernel<<<a.nq, ATT_NT, smem, st>>>(a);
-  return (int)cudaGetLastError();
+// Grid for a persistent kernel: one block of PK_NT threads per SM, if the
+// occupancy query says one fits with `smem` bytes of dynamic shared memory.
+template <class Kernel>
+int qt_persistent_grid(Kernel kernel, int smem, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  QT_TRY((int)cudaGetDevice(&dev));
+  QT_TRY((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  QT_TRY((int)cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
+  if (!coop) return (int)cudaErrorNotSupported;
+  // all the dynamic shared memory a block may opt into, so that plans of
+  // other sizes launch too
+  int optin = 0;
+  cudaFuncAttributes fa{};
+  QT_TRY((int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  QT_TRY((int)cudaFuncGetAttributes(&fa, kernel));
+  const int limit = optin - (int)fa.sharedSizeBytes;
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  QT_TRY((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit));
+  QT_TRY((int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PK_NT, smem));
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *blocks = sms;
+  return 0;
 }
 
-// dst[i] = float(src[i]) for i < n (fp32 or bf16 source)
-__global__ void qt_load_row_kernel(const void* src, int src_bf16, float* dst, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
-    dst[i] = qt_ld(src, i, src_bf16);
-}
-
-int qt_load_row(const void* src, int src_bf16, float* dst, int n, cudaStream_t st) {
-  qt_load_row_kernel<<<(n + 255) / 256, 256, 0, st>>>(src, src_bf16, dst, n);
-  return (int)cudaGetLastError();
-}
-
-// Decoder layer l for the token whose hidden state is in w.h: the qkv GEMV
-// (RMSNorm prologue), the attention `at` (the caller fills in its cache:
-// kc, vc, kv_bf16, pos, position, ws, cp_t, C, cos, sin), the o GEMV plus
-// the residual, the gate/up GEMV (RMSNorm prologue) and the down GEMV (SiLU
-// prologue) plus the residual. Five launches.
-int qt_layer(const QtLayers& w, int l, QtAttn at, cudaStream_t st) {
-  const long long hc = w.hc, qw = (w.nq + 2 * w.nkv) * w.hd, aw = w.nq * w.hd;
-  const long long gw = 2 * w.inter;
-  QT_TRY(qt_gemv({w.h, QT_VEC_RMS, w.in_ln + l * hc, w.eps, (int)hc, (int)qw,
-                  w.qkv_q + l * qw * hc, w.qkv_s + l * qw, w.qkv_m + l * qw, w.qkv, 0}, st));
-  at.qkv = w.qkv;
-  at.q_ln = w.q_ln + (long long)l * w.hd;
-  at.k_ln = w.k_ln + (long long)l * w.hd;
-  at.nq = w.nq; at.nkv = w.nkv; at.hd = w.hd;
-  at.eps = w.eps; at.scale = 1.f / sqrtf((float)w.hd); at.out = w.attn;
-  QT_TRY(qt_attention(at, st));
-  QT_TRY(qt_gemv({w.attn, QT_VEC_PLAIN, nullptr, w.eps, (int)aw, (int)hc,
-                  w.o_q + l * hc * aw, w.o_s + l * hc, w.o_m + l * hc, w.h, 1}, st));
-  QT_TRY(qt_gemv({w.h, QT_VEC_RMS, w.post_ln + l * hc, w.eps, (int)hc, (int)gw,
-                  w.gu_q + l * gw * hc, w.gu_s + l * gw, w.gu_m + l * gw, w.gu, 0}, st));
-  return qt_gemv({w.gu, QT_VEC_SILU, nullptr, w.eps, w.inter, (int)hc,
-                  w.dn_q + l * hc * w.inter, w.dn_s + l * hc, w.dn_m + l * hc, w.h, 1}, st);
+// One cooperative launch of `kernel` on `args` (a pointer to its one
+// by-value struct parameter), with the plan's grid and shared memory.
+template <class Kernel>
+int qt_persistent_launch(Kernel kernel, const void* args, const QtPlan& plan, void* stream) {
+  void* params[] = {const_cast<void*>(args)};
+  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(plan.grid), dim3(PK_NT),
+                                          params, (size_t)plan.smem, (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -118,7 +118,11 @@ _SIGNATURES = {
     "qt_up_dwconv_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qt_units_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_talker_step": [_P, _P],
-    "qt_cp_frame": [_P, _P, _P],
+    "qt_talker_grid": [_I, _P],
+    "qt_cp_frame": [_P, _P],
+    "qt_cp_grid": [_I, _P],
+    "qt_grid_barrier_grid": [_I, _P],
+    "qt_grid_barriers": [_I, _I, _I, _P],
     "qt_gumbel_sample": [_P, _I, _F, _P, _I, _P, _P],
 }
 

@@ -1,4 +1,6 @@
-"""K2: one whole code-predictor frame per call (CUDA kernel csrc/cp_frame.cu).
+"""K2: one whole code-predictor frame per call, one cooperative launch of a
+persistent kernel (CUDA kernel csrc/cp_frame.cu; its launch plan in
+ops/cuda/persistent.py).
 
 Counterpart of qwen3_tts_tpu/ops/pallas/cp_megakernel.py: the builder of
 the kernel's W8A8 tree (build_cp_kernel_params), the wrapper
@@ -8,8 +10,8 @@ the kernel's W8A8 tree (build_cp_kernel_params), the wrapper
 position 0, code 0's embedding at position 1, then each sampled code's
 projected embedding), each pass after the first ending in group k's lm_head,
 the repetition penalty and a Gumbel-argmax draw (ops/cuda/gumbel_sampler.py,
-K2g). The raw embedding sum the talker needs is gathered outside the kernel
-from the `embr` tables, in group order.
+K2g). The raw embedding sum the talker needs comes from the `embr` tables,
+in group order (in the kernel, the last thing block 0 does).
 
 The per-frame random seed is a device tensor (the caller draws it from its
 torch.Generator), so a frame queues without a host sync.
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 
 from ..quant import dense_entry_np, quantize_rowwise_int8_np, w8a8_linear_plain
 from ..rope import inv_freq
-from . import _build
+from . import _build, persistent
 from . import gumbel_sampler as gs
 
 launches = 0  # frames launched since the last reset
@@ -78,7 +80,7 @@ def layer_weights(lay: dict) -> dict:
 
 def w8a8_layer(kp: dict, l: int, h: torch.Tensor, cos, sin, attend, config) -> torch.Tensor:
     """Decoder layer l for one token, h [1, hc] fp32 -> h after the layer (the
-    plain form of qt_layer in csrc/w8a8.cuh). attend(l, q, k, v) is the
+    plain form of a layer's phases in csrc/w8a8.cuh). attend(l, q, k, v) is the
     attention over the caller's cache, given this token's normed and rotated
     q [nq, hd] and k [nkv, hd] and its v [nkv, hd]; it returns [1, nq * hd]."""
     hd, nq, nkv = config.head_dim, config.num_attention_heads, config.num_key_value_heads
@@ -270,28 +272,37 @@ def predict_frame_plain(kp, code_hidden, code0_embed, seed, temperature, seen_cp
 class CpArgs(ctypes.Structure):
     """Mirror of QtCpArgs in csrc/cp_frame.cu."""
 
-    _fields_ = [("lay", LayerArgs)] + _build.struct_fields(
-        "fin_ln:p head_q:p head_s:p head_m:p emb_q:p emb_s:p emb_m:p cos:p sin:p x0:p seed:p "
-        "temp:f seen:p penalty:f forced:p codes:p logits:p kv_k:p kv_v:p vocab:i ng:i"
+    _fields_ = [("lay", LayerArgs), ("plan", persistent.Plan)] + _build.struct_fields(
+        "fin_ln:p head_q:p head_s:p head_m:p emb_q:p emb_s:p emb_m:p embr_q:p embr_s:p "
+        "embr_m:p cos:p sin:p x0a:p x0b:p x0a_bf16:i x0b_bf16:i code0:p code0_bf16:i esum:p "
+        "esum_bf16:i th:i seed:p temp:f seen:p penalty:f forced:p codes:p logits:p kv_k:p "
+        "kv_v:p vocab:i ng:i"
     )
 
 
 def predict_frame_kernel(kp, code_hidden, code0_embed, seed, temperature, seen_cp, config,
                          repetition_penalty: float = 1.05, forced_codes=None, logits_out=None):
-    """Launch the frame on the card; same contract as predict_frame_plain."""
+    """Launch the frame on the card (one cooperative launch); same contract
+    as predict_frame_plain. Without small_to_mtp_projection the kernel reads
+    the first two token rows as they are; with it, their projection into cp
+    space runs here first."""
     global launches
     ng = config.num_code_groups - 1
     nl, nkv, hd, vocab = (config.num_hidden_layers, config.num_key_value_heads, config.head_dim,
                           config.vocab_size)
-    dev = code_hidden.device
+    hc, dev = config.hidden_size, code_hidden.device
     lay, scratch = layer_args(kp, config, dev)
-    for pre in ("head", "emb"):
+    for pre in ("head", "emb", "embr"):
         _build.require(kp[f"{pre}_q"], f"{pre}_q", dtype=torch.int8)
         _build.require(kp[f"{pre}_s"], f"{pre}_s", dtype=torch.float32)
         _build.require(kp[f"{pre}_m"], f"{pre}_m", dtype=torch.float32)
+    persistent.require_aligned(kp, ("qkv_q", "o_q", "gu_q", "dn_q", "head_q", "emb_q"))
     for name in ("fin_ln", "cos", "sin"):
         _build.require(kp[name], name, dtype=torch.float32)
     _build.require(seed, "seed", dtype=torch.int64)
+    th = kp["embr_q"].shape[-1]
+    _build.require(code0_embed, "code0_embed", dtype=(torch.float32, torch.bfloat16),
+                   shape=(1, 1, th))
     track = seen_cp is not None
     if track:
         _build.require(seen_cp, "seen_cp", dtype=torch.bool, shape=(ng, vocab))
@@ -300,27 +311,37 @@ def predict_frame_kernel(kp, code_hidden, code0_embed, seed, temperature, seen_c
     if logits_out is None:
         logits_out = torch.empty(ng, vocab, dtype=torch.float32, device=dev)
     _build.require(logits_out, "logits_out", dtype=torch.float32, shape=(ng, vocab))
-    x0 = _x0(kp, code_hidden, code0_embed).contiguous()
+    if "proj_w" in kp:
+        x0 = _x0(kp, code_hidden, code0_embed).contiguous()
+        x0a, x0b = x0[0], x0[1]
+    else:
+        x0a, x0b = code_hidden.reshape(-1).contiguous(), code0_embed.reshape(-1)
+        if x0a.shape != (hc,) or x0b.shape != (hc,):
+            raise ValueError(f"code_hidden and code0_embed must hold {hc} values each")
     codes = torch.empty(ng, dtype=torch.int64, device=dev)
+    esum = torch.empty(1, 1, th, dtype=code_hidden.dtype, device=dev)
     kv_k, kv_v = (torch.empty(nl, ng + 1, nkv * hd, dtype=torch.float32, device=dev)
                   for _ in range(2))
     args = CpArgs(
-        lay=lay,
+        lay=lay, plan=persistent.cp_plan(config, dev),
         **{k: kp[k].data_ptr() for k in ("fin_ln", "head_q", "head_s", "head_m", "emb_q",
-                                         "emb_s", "emb_m", "cos", "sin")},
-        x0=x0.data_ptr(), seed=seed.data_ptr(), temp=max(float(temperature), 0.0),
+                                         "emb_s", "emb_m", "embr_q", "embr_s", "embr_m",
+                                         "cos", "sin")},
+        x0a=x0a.data_ptr(), x0b=x0b.data_ptr(), x0a_bf16=_build.is_bf16(x0a),
+        x0b_bf16=_build.is_bf16(x0b), code0=code0_embed.data_ptr(),
+        code0_bf16=_build.is_bf16(code0_embed),
+        esum=esum.data_ptr(), esum_bf16=_build.is_bf16(esum), th=th,
+        seed=seed.data_ptr(), temp=max(float(temperature), 0.0),
         seen=seen_cp.view(torch.uint8).data_ptr() if track else None,
         penalty=float(repetition_penalty) if track else 1.0,
         forced=_build.ptr(forced_codes), codes=codes.data_ptr(),
         logits=logits_out.data_ptr(), kv_k=kv_k.data_ptr(), kv_v=kv_v.data_ptr(),
         vocab=vocab, ng=ng,
     )
-    sampled = ctypes.c_int(0)
-    _build.check(_build.lib().qt_cp_frame(ctypes.addressof(args), _build.stream(),
-                                          ctypes.addressof(sampled)), "qt_cp_frame")
+    _build.check(_build.lib().qt_cp_frame(ctypes.addressof(args), _build.stream()),
+                 "qt_cp_frame")
     launches += 1
-    gs.launches += sampled.value  # the frame's launches of the sampler kernel
-    return codes, _embed_sum(kp, codes, code0_embed, code_hidden.dtype), seen_cp
+    return codes, esum, seen_cp
 
 
 def predict_frame(kp, code_hidden, code0_embed, seed, temperature, seen_cp, config,

@@ -2,9 +2,9 @@
 qt_sample_kernel in csrc/cp_frame.cu), and its test harness.
 
 Counterpart of qwen3_tts_tpu/ops/pallas/cp_megakernel.py::_gumbel_pick and
-gumbel_sample_kernel. K2 (ops/cuda/cp_megakernel.py) launches the same
-kernel once per codec group of a frame, so the formula this harness draws
-with is the one the frame ships:
+gumbel_sample_kernel. K2 (ops/cuda/cp_megakernel.py) makes each draw of a
+frame with the same device function, qt_gumbel_pick, so the formula this
+harness draws with is the one the frame ships:
 
   bits = Philox4x32-10(key = seed, counter = (v // 4, row, 0, 0))[v % 4]
   u = ((bits >> 8) + 0.5) / 2^24,  g = -log(-log(u))
@@ -21,7 +21,10 @@ import torch
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (K2 adds its per-frame ones)
+# launches of K2g's kernel since the last reset. K2 makes a frame's draws
+# with the same device function inside its own launch, which counts here
+# no launch.
+launches = 0
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57

@@ -1,4 +1,6 @@
-"""K1: one talker decode step per call (CUDA kernel csrc/talker_step.cu).
+"""K1: one talker decode step per call, one cooperative launch of a
+persistent kernel (CUDA kernel csrc/talker_step.cu; its launch plan in
+ops/cuda/persistent.py).
 
 Counterpart of qwen3_tts_tpu/ops/pallas/talker_megakernel.py: the builder of
 the kernel's W8A8 tree (build_talker_kernel_params), the ring-cache layout
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from ..quant import w8a8_linear_plain
-from . import _build
+from . import _build, persistent
 from .cp_megakernel import (
     LayerArgs,
     layer_args,
@@ -114,22 +116,24 @@ def talker_step_plain(tkp, embed, cache2, position, window_start, cos, sin, conf
 class TalkerArgs(ctypes.Structure):
     """Mirror of QtTalkerArgs in csrc/talker_step.cu."""
 
-    _fields_ = [("lay", LayerArgs)] + _build.struct_fields(
+    _fields_ = [("lay", LayerArgs), ("plan", persistent.Plan)] + _build.struct_fields(
         "fin_ln:p ch_q:p ch_s:p ch_m:p embed:p embed_bf16:i k2:p v2:p kv_bf16:i pos:p "
-        "position:p window_start:p cos:p sin:p h_out:p logits:p vocab:i C:i"
+        "position:p window_start:p cos:p sin:p h_out:p logits:p part:p cnt:p vocab:i C:i"
     )
 
 
 def talker_step_kernel(tkp, embed, cache2, position, window_start, cos, sin, config):
-    """Launch the step on the card; same contract as talker_step_plain."""
+    """Launch the step on the card (one cooperative launch); same contract
+    as talker_step_plain."""
     global launches
     hc, hd, nl = config.hidden_size, config.head_dim, config.num_hidden_layers
-    nkv, vocab = config.num_key_value_heads, config.vocab_size
+    nq, nkv, vocab = config.num_attention_heads, config.num_key_value_heads, config.vocab_size
     k2, v2, pos = cache2["k2"], cache2["v2"], cache2["pos"]
     c_len = pos.shape[0]
     dev = embed.device
     lay, scratch = layer_args(tkp, config, dev)
     _build.require(tkp["ch_q"], "ch_q", dtype=torch.int8)
+    persistent.require_aligned(tkp, ("qkv_q", "o_q", "gu_q", "dn_q", "ch_q"))
     for name in ("ch_s", "ch_m", "fin_ln"):
         _build.require(tkp[name], name, dtype=torch.float32)
     _build.require(embed, "embed", dtype=(torch.float32, torch.bfloat16), shape=(1, 1, hc))
@@ -142,15 +146,18 @@ def talker_step_kernel(tkp, embed, cache2, position, window_start, cos, sin, con
     for t, name in ((position, "position"), (window_start, "window_start")):
         _build.require(t, name, dtype=torch.int64)
     cos, sin = cos.reshape(hd).float().contiguous(), sin.reshape(hd).float().contiguous()
+    plan = persistent.talker_plan(config, c_len, dev)
     h_out = torch.empty(hc, dtype=embed.dtype, device=dev)
     logits = torch.empty(vocab, dtype=torch.float32, device=dev)
+    part = torch.empty(nq * plan.nch * (hd + 2), dtype=torch.float32, device=dev)
     args = TalkerArgs(
-        lay=lay, **{k: tkp[k].data_ptr() for k in ("fin_ln", "ch_q", "ch_s", "ch_m")},
+        lay=lay, plan=plan, **{k: tkp[k].data_ptr() for k in ("fin_ln", "ch_q", "ch_s", "ch_m")},
         embed=embed.data_ptr(), embed_bf16=_build.is_bf16(embed),
         k2=k2.data_ptr(), v2=v2.data_ptr(), kv_bf16=_build.is_bf16(k2), pos=pos.data_ptr(),
         position=position.data_ptr(), window_start=window_start.data_ptr(),
         cos=cos.data_ptr(), sin=sin.data_ptr(), h_out=h_out.data_ptr(),
-        logits=logits.data_ptr(), vocab=vocab, C=c_len,
+        logits=logits.data_ptr(), part=part.data_ptr(),
+        cnt=persistent.counters(dev, nkv).data_ptr(), vocab=vocab, C=c_len,
     )
     _build.check(_build.lib().qt_talker_step(ctypes.addressof(args), _build.stream()),
                  "qt_talker_step")
