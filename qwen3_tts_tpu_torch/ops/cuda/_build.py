@@ -114,9 +114,14 @@ _SIGNATURES = {
     "qt_pt_head_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_pt_head_store_rows": [_I],
     "qt_pt_silu_mul2": [_P, _P, _P, _LL, _P],
+    "qt_pt_persistent": [_P, _I, _I, _P],
+    "qt_pt_persistent_grid": [_I, _P],
     "qt_up_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_up_dwconv_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qt_units_gemm": [ctypes.POINTER(GemmArgs), _P],
+    "qt_units_conv": [_P, _I, _I, _P],
+    "qt_units_snake": [_P, _I, _P, _P, _P, _LL, _I, _P],
+    "qt_units_tail": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "qt_talker_step": [_P, _P],
     "qt_talker_grid": [_I, _P],
     "qt_cp_frame": [_P, _P],

@@ -6,19 +6,109 @@ pre_transformer_packed, K4a of pre_transformer_fused: x [B, T, latent] ->
 [B, T, latent] through input_proj, nl layers of RMSNorm -> RoPE attention
 with LayerScale -> RMSNorm -> SwiGLU with LayerScale, the final norm and
 output_proj. K4 reads fused q/k/v and gate/up weights; K4a the per-head
-layout of build_pretransformer_fused_params (the JAX builder's arrays). The
-residual stream and all intermediates are fp32; weights are fp32 or bf16.
+layout of build_pretransformer_fused_params (the JAX package's arrays).
+With bf16 weights (the pipeline's) K4 is one persistent cooperative launch
+on the tensor cores (bf16 operands, fp32 sums and residual stream, as the
+JAX kernel at compute_dtype bf16); with fp32 weights it is the exact fp32
+launch sequence, as is K4a for either dtype.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, persistent
 
-launches = 0  # K4 kernel-sequence launches since the last reset
+launches = 0  # K4 calls (kernel launches or sequences) since the last reset
 fused_launches = 0  # K4a kernel-sequence launches since the last reset
+
+# The persistent bf16 K4 (csrc/pretransformer.cu, qt_pt_persistent_kernel)
+PT_WARPS = persistent.PK_NT // 32
+PT_QROWS = 64  # query rows of an attention item
+SMEM_OPTIN = 232448  # the most dynamic shared memory a block may opt into on sm_90
+
+
+class PtArgs(ctypes.Structure):
+    """Mirror of QtPtArgs in csrc/pretransformer.cu."""
+
+    _fields_ = _build.struct_fields(
+        "x:p x_bf16:i wi:p wqkv:p wo:p wgu:p wd:p wout:p bi:p ln1:p lsa:p ln2:p lsm:p "
+        "fnorm:p bout:p inv_freq:p h:p qkv:p o:p mm:p out:p out_bf16:i B:i T:i lat:i hid:i "
+        "nh:i hd:i inter:i nl:i eps:f scale:f wbuf:i work:i area:i kc:i")
+
+
+def persistent_gemms(lat: int, hid: int, d: int, inter: int, nl: int):
+    """(K, N, paired) of the persistent K4's GEMM phases in launch order:
+    the input projection, per layer qkv, o, gate/up (paired: each item
+    takes 8 gate and the same 8 up columns), down; the output projection."""
+    layer = [(hid, 3 * d, False), (d, hid, False), (hid, 2 * inter, True), (inter, hid, False)]
+    return [(lat, hid, False)] + layer * nl + [(hid, lat, False)]
+
+
+def column_items(n: int, paired: bool) -> int:
+    return n // 16 if paired else -(-n // 16)
+
+
+def item_columns(n: int, paired: bool, nt: int) -> list[int]:
+    """Output columns of column item nt (qt_pt_col), those past n dropped;
+    a paired item gives the mm columns it writes."""
+    if paired:
+        return [nt * 8 + j for j in range(8)]
+    return [c for c in range(nt * 16, nt * 16 + 16) if c < n]
+
+
+def item_rows(k: int, area: int) -> int:
+    """Rows of a GEMM item of depth k (qt_pt_bm): 128 where their bf16 copy
+    fits the work area, else 64."""
+    return 128 if 128 * (k + 8) * 2 <= area else 64
+
+
+def gemm_items(m: int, n: int, paired: bool, bm: int) -> int:
+    return -(-m // bm) * column_items(n, paired)
+
+
+def attention_items(b: int, t: int, nh: int) -> int:
+    """(sequence, head, PT_QROWS query rows) items of an attention phase."""
+    return b * nh * -(-t // PT_QROWS)
+
+
+def block_items(items: int, grid: int, block: int) -> range:
+    """The items a block takes in a phase: round robin from its index."""
+    return range(block, items, grid)
+
+
+def persistent_layout(lat: int, hid: int, d: int, hd: int,
+                      inter: int) -> tuple[int, int, int, int, int]:
+    """(dynamic shared memory, bytes of one weight buffer, offset and bytes
+    of the work area, keys staged per chunk): two [kmax, 16] bf16 weight
+    slices, then one area that holds an item's 64 bf16 input rows of the
+    greatest depth and 128 of the least (item_rows), later its
+    partial sums (16 warps x 16 x 16 fp32), or attention's PT_QROWS query
+    rows and kc key and value rows (fp32, hd + 1 a row). Raises where a
+    width does not fit the kernel."""
+    kmax = max(lat, hid, d, inter)
+    if any(k % 16 for k in (lat, hid, d, inter)) or hid > 1024 or hd % 2 or hd > 128:
+        raise ValueError(f"persistent K4: widths {lat, hid, d, inter} must be multiples of 16, "
+                         f"hidden <= 1024, head_dim {hd} even and <= 128")
+    wbuf = kmax * 16 * 2
+    kmin = min(lat, hid, d, inter)
+    area = max(64 * (kmax + 8) * 2, 128 * (kmin + 8) * 2, PT_WARPS * 256 * 4,
+               (PT_QROWS + 64) * (hd + 1) * 4)
+    kc = min(128, ((area // 4) // (hd + 1) - PT_QROWS) // 2 // 32 * 32)
+    smem = 2 * wbuf + area
+    if smem > SMEM_OPTIN:
+        raise ValueError(f"persistent K4 needs {smem} bytes of shared memory")
+    return smem, wbuf, 2 * wbuf, area, kc
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, lat: int, hid: int, d: int, hd: int, inter: int) -> tuple[int, ...]:
+    smem, wbuf, work, area, kc = persistent_layout(lat, hid, d, hd, inter)
+    return persistent._grid("qt_pt_persistent_grid", device, smem), smem, wbuf, work, area, kc
 
 
 def _inv_freq(dim: int, base: float) -> np.ndarray:
@@ -71,55 +161,110 @@ def _rms(h: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def pre_transformer_plain(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
                           eps: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel sequence (fp32 arithmetic)."""
+    """Plain PyTorch version of the kernel (fp32 arithmetic). With bf16
+    weights it rounds where the JAX kernel (_kernel_packed) rounds to its
+    compute dtype and where the kernel feeds its tensor cores: every
+    product's operands (the normed rows, q, k, v, the softmax weights, the
+    attention output, SiLU(gate) * up) go to bf16, the rotate-half term of
+    RoPE is taken from bf16 q / k (JAX forms it as a product with a
+    permutation matrix), and q carries the 1/sqrt(hd) scale; sums, the
+    residual stream and the softmax stay fp32."""
     b, t, lat = x.shape
     nl = kp["wqkv"].shape[0]
     d = nh * hd
     inter = kp["wd"].shape[1]
-    h = x.float() @ kp["wi"].float() + kp["bi"]
+    rounds = kp["wqkv"].dtype == torch.bfloat16
+
+    def op(z):
+        return z.bfloat16().float() if rounds else z
+
+    h = op(x.float()) @ kp["wi"].float() + kp["bi"]
     ang = torch.arange(t, dtype=torch.float32, device=x.device)[:, None] * kp["inv_freq"]
     cos = torch.cat([ang.cos(), ang.cos()], -1)
     sin = torch.cat([ang.sin(), ang.sin()], -1)
     causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    scale = 1.0 / hd ** 0.5
 
     def rope(z):  # [b, nh, t, hd]
         z1, z2 = z[..., : hd // 2], z[..., hd // 2:]
-        return z * cos + torch.cat([-z2, z1], -1) * sin
+        return z * cos + op(torch.cat([-z2, z1], -1)) * sin
 
     for l in range(nl):
-        xn = _rms(h, kp["ln1"][l], eps)
+        xn = op(_rms(h, kp["ln1"][l], eps))
         qkv = xn @ kp["wqkv"][l].float()
         q, k, v = (
             qkv[..., i * d:(i + 1) * d].reshape(b, t, nh, hd).transpose(1, 2)
             for i in range(3)
         )
-        q, k = rope(q), rope(k)
-        s = (q @ k.transpose(-1, -2)) * (1.0 / hd ** 0.5)
-        p = torch.softmax(s.masked_fill(~causal, -1e30), dim=-1)
-        o = (p @ v).transpose(1, 2).reshape(b, t, d)
+        if rounds:
+            s = op(rope(q) * scale) @ op(rope(k)).transpose(-1, -2)
+            v = op(v)
+        else:
+            s = (rope(q) @ rope(k).transpose(-1, -2)) * scale
+        p = op(torch.softmax(s.masked_fill(~causal, -1e30), dim=-1))
+        o = op((p @ v).transpose(1, 2).reshape(b, t, d))
         h = h + kp["lsa"][l] * (o @ kp["wo"][l].float())
-        gu = _rms(h, kp["ln2"][l], eps) @ kp["wgu"][l].float()
-        m = torch.nn.functional.silu(gu[..., :inter]) * gu[..., inter:]
+        gu = op(_rms(h, kp["ln2"][l], eps)) @ kp["wgu"][l].float()
+        m = op(torch.nn.functional.silu(gu[..., :inter]) * gu[..., inter:])
         h = h + kp["lsm"][l] * (m @ kp["wd"][l].float())
-    out = _rms(h, kp["fnorm"], eps) @ kp["wout"].float() + kp["bout"]
+    out = op(_rms(h, kp["fnorm"], eps)) @ kp["wout"].float() + kp["bout"]
     return out.to(x.dtype)
+
+
+def _pre_transformer_persistent(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
+                                eps: float) -> torch.Tensor:
+    """bf16 weights: one cooperative launch of qt_pt_persistent_kernel."""
+    b, t, lat = x.shape
+    nl, hid, _ = kp["wqkv"].shape
+    d, inter = nh * hd, kp["wd"].shape[1]
+    for name, shape in (("wi", (lat, hid)), ("wqkv", (nl, hid, 3 * d)), ("wo", (nl, d, hid)),
+                        ("wgu", (nl, hid, 2 * inter)), ("wd", (nl, inter, hid)),
+                        ("wout", (hid, lat))):
+        _build.require(kp[name], name, dtype=torch.bfloat16, shape=shape)
+    for name, n in (("bi", hid), ("fnorm", hid), ("bout", lat)):
+        _build.require(kp[name], name, dtype=torch.float32, shape=(n,))
+    if x.data_ptr() % 16:  # rows are read 16 bytes at a time
+        x = x.clone()
+    grid, smem, wbuf, work, area, kc = _plan(persistent._index(x.device), lat, hid, d, hd, inter)
+    rows = b * t
+    h = torch.empty((rows, hid), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((rows, 3 * d), dtype=torch.float32, device=x.device)
+    o = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
+    mm = torch.empty((rows, inter), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((rows, lat), dtype=x.dtype, device=x.device)
+    w = {k: kp[k].data_ptr() for k in ("wi", "wqkv", "wo", "wgu", "wd", "wout", "bi", "ln1",
+                                       "lsa", "ln2", "lsm", "fnorm", "bout", "inv_freq")}
+    args = PtArgs(x=x.data_ptr(), x_bf16=_build.is_bf16(x), **w, h=h.data_ptr(),
+                  qkv=qkv.data_ptr(), o=o.data_ptr(), mm=mm.data_ptr(), out=out.data_ptr(),
+                  out_bf16=_build.is_bf16(out), B=b, T=t, lat=lat, hid=hid, nh=nh, hd=hd,
+                  inter=inter, nl=nl, eps=eps, scale=1.0 / hd ** 0.5, wbuf=wbuf, work=work,
+                  area=area, kc=kc)
+    _build.check(_build.lib().qt_pt_persistent(ctypes.addressof(args), grid, smem,
+                                               _build.stream()), "qt_pt_persistent")
+    return out.reshape(b, t, lat)
 
 
 def pre_transformer_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
                            eps: float) -> torch.Tensor:
-    """Launch the kernel sequence on a CUDA tensor x [B, T, latent]."""
+    """Run K4 on a CUDA tensor x [B, T, latent]: bf16 weights take the
+    persistent tensor-core kernel (one launch), fp32 weights the exact
+    fp32 launch sequence."""
     global launches
     b, t, lat = x.shape
     nl, hid, d3 = kp["wqkv"].shape
     d = nh * hd
     inter = kp["wd"].shape[1]
-    if d3 != 3 * d or hd % 32 or hd > 128:
-        raise ValueError(f"pre-transformer kernel: nh={nh}, hd={hd} do not fit "
-                         f"wqkv {tuple(kp['wqkv'].shape)} (hd % 32 == 0, <= 128)")
     _build.require(x, "x", dtype=(torch.float32, torch.bfloat16))
     for name in ("ln1", "lsa", "ln2", "lsm"):
         _build.require(kp[name], name, dtype=torch.float32, shape=(nl, hid))
     _build.require(kp["inv_freq"], "inv_freq", dtype=torch.float32, shape=(hd // 2,))
+    if kp["wqkv"].dtype == torch.bfloat16:
+        out = _pre_transformer_persistent(kp, x, nh=nh, hd=hd, eps=eps)
+        launches += 1
+        return out
+    if d3 != 3 * d or hd % 32 or hd > 128:
+        raise ValueError(f"pre-transformer kernel: nh={nh}, hd={hd} do not fit "
+                         f"wqkv {tuple(kp['wqkv'].shape)} (hd % 32 == 0, <= 128)")
     rows = b * t
     lib, st = _build.lib(), _build.stream()
     f32 = dict(dtype=torch.float32, device=x.device)

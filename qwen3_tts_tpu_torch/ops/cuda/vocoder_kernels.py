@@ -7,17 +7,44 @@ causal transposed-conv upsample (stride r) -> three dilated residual units
 (d = 1, 3, 9); the last block also carries out_snake -> out_conv (k=7,
 Cout=1) -> clip. The SnakeBeta and the phase-decomposed upsample before the
 units stay plain torch ops (a matmul), as they are plain XLA in the JAX
-package; the units (and the tail) are the kernel.
+package; the units (and the tail) are the kernel. With bf16 weights (the
+pipeline's) the units run on the tensor cores (qt_units_conv, bf16
+operands, fp32 sums); with fp32 weights on the exact fp32 GEMM of
+csrc/gemm.cuh. The wrapper picks by the weights' dtype.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import _build
+from . import _build, persistent
 
 DILATIONS = (1, 3, 9)
 launches = 0  # kernel-sequence launches since the last reset
+
+# bf16 tensor-core conv tiles (BM rows x BN columns) of csrc/vocoder_units.cu,
+# largest first
+CONV_TILES = ((128, 128), (128, 96), (128, 64), (64, 64))
+
+
+class ConvArgs(ctypes.Structure):
+    """Mirror of QtConvArgs in csrc/vocoder_units.cu."""
+
+    _fields_ = _build.struct_fields(
+        "a:p w:p bias:p res:p res_bf16:i out:p out_bf16:i act_alpha:p act_binv:p act:p "
+        "B:i S:i C:i N:i taps:i dil:i")
+
+
+def conv_tile(b: int, s: int, n: int, sms: int) -> tuple[int, int]:
+    """The largest tile whose width divides n and of which there are at
+    least `sms` (one per SM) over b sequences of s rows; else 64 x 64 (a
+    ragged n is masked at the edge)."""
+    for bm, bn in CONV_TILES:
+        if n % bn == 0 and b * -(-s // bm) * (n // bn) >= sms:
+            return bm, bn
+    return 64, 64
 
 
 def _snake_params(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -80,27 +107,100 @@ def _dilated_taps(x: torch.Tensor, w: torch.Tensor, k: int, d: int) -> torch.Ten
 
 
 def residual_units_plain(kp: dict, y: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version (fp32 arithmetic, exact sin)."""
+    """Plain PyTorch version (fp32 arithmetic, exact sin). With bf16
+    weights each product's activation operand (a SnakeBeta output) is
+    rounded to bf16 first, as the JAX kernel rounds to its compute dtype
+    and the kernel feeds its tensor cores; sums stay fp32."""
     yf = y.float()
+    rounds = kp["u_w1"].dtype == torch.bfloat16
+
+    def op(t):
+        return t.bfloat16().float() if rounds else t
+
     for u, d in enumerate(DILATIONS):
-        h = _snake(yf, kp["u_a1"][u], kp["u_binv1"][u])
+        h = op(_snake(yf, kp["u_a1"][u], kp["u_binv1"][u]))
         h = _dilated_taps(h, kp["u_w1"][u], 7, d) + kp["u_b1"][u]
-        h = _snake(h, kp["u_a2"][u], kp["u_binv2"][u])
+        h = op(_snake(h, kp["u_a2"][u], kp["u_binv2"][u]))
         yf = yf + (h @ kp["u_w2"][u].float() + kp["u_b2"][u])
     if "t_w" in kp:
-        ys = _snake(yf, kp["t_a"], kp["t_binv"])
+        ys = op(_snake(yf, kp["t_a"], kp["t_binv"]))
         wav = _dilated_taps(ys, kp["t_w"], 7, 1) + kp["t_b"]
         return torch.clamp(wav[..., 0], -1.0, 1.0)
     return yf.to(y.dtype)
 
 
+def _conv(a, w, *, b, s, taps, dil, bias, res=None, out=None, act=None, snake=None) -> None:
+    """One bf16 tensor-core causal conv launch (qt_units_conv) over the
+    activated bf16 operand a [b * s, C]: out = (res +) bias + conv(a, w)
+    when out is given, act = bf16(SnakeBeta `snake` of it) when act is."""
+    c, n = a.shape[-1], w.shape[1]
+    bm, bn = conv_tile(b, s, n, persistent.sm_count(a.device))
+    args = ConvArgs(
+        a=a.data_ptr(), w=w.data_ptr(), bias=bias.data_ptr(), res=_build.ptr(res),
+        res_bf16=_build.is_bf16(res) if res is not None else 0, out=_build.ptr(out),
+        out_bf16=_build.is_bf16(out) if out is not None else 0,
+        act_alpha=_build.ptr(snake[0]) if act is not None else None,
+        act_binv=_build.ptr(snake[1]) if act is not None else None, act=_build.ptr(act),
+        B=b, S=s, C=c, N=n, taps=taps, dil=dil)
+    _build.check(_build.lib().qt_units_conv(ctypes.addressof(args), bm, bn, _build.stream()),
+                 "qt_units_conv")
+
+
+def _units_mma(kp: dict, y: torch.Tensor) -> torch.Tensor:
+    """bf16 weights: the units (and the tail) on the tensor-core conv. Each
+    conv reads its operand already activated in bf16: the first from
+    qt_units_snake, the others from the epilogue of the conv before."""
+    b, s, c = y.shape
+    rows = b * s
+    if c % 8:
+        raise ValueError(f"K6's bf16 kernel needs channels % 8 == 0 (got {c})")
+    for name in ("u_w1", "u_w2"):
+        _build.require(kp[name], name, dtype=torch.bfloat16)
+    tail = "t_w" in kp
+    if tail:
+        _build.require(kp["t_w"], "t_w", dtype=torch.bfloat16, shape=(7 * c, 1))
+    lib, st = _build.lib(), _build.stream()
+    a = torch.empty((rows, c), dtype=torch.bfloat16, device=y.device)
+    a2 = torch.empty((rows, c), dtype=torch.bfloat16, device=y.device)
+    acc = torch.empty((rows, c), dtype=torch.float32, device=y.device)
+    cur = y.reshape(rows, c)
+    _build.check(lib.qt_units_snake(cur.data_ptr(), _build.is_bf16(cur), kp["u_a1"][0].data_ptr(),
+                                    kp["u_binv1"][0].data_ptr(), a.data_ptr(), rows * c, c, st),
+                 "qt_units_snake")
+    last = len(DILATIONS) - 1
+    for u, d in enumerate(DILATIONS):
+        _conv(a, kp["u_w1"][u], b=b, s=s, taps=7, dil=d, bias=kp["u_b1"][u], act=a2,
+              snake=(kp["u_a2"][u], kp["u_binv2"][u]))
+        if u < last:  # y for the next unit's residual, its operand for its conv1
+            out, nxt = acc, (kp["u_a1"][u + 1], kp["u_binv1"][u + 1])
+        elif tail:  # only the tail's operand
+            out, nxt = None, (kp["t_a"], kp["t_binv"])
+        else:
+            out, nxt = torch.empty((rows, c), dtype=y.dtype, device=y.device), None
+        _conv(a2, kp["u_w2"][u], b=b, s=s, taps=1, dil=1, bias=kp["u_b2"][u], res=cur, out=out,
+              act=a if nxt is not None else None, snake=nxt)
+        cur = out
+    if not tail:
+        return cur.reshape(b, s, c)
+    wav = torch.empty(rows, dtype=torch.float32, device=y.device)
+    _build.check(lib.qt_units_tail(a.data_ptr(), kp["t_w"].data_ptr(), kp["t_b"].data_ptr(),
+                                   wav.data_ptr(), rows, s, c, st), "qt_units_tail")
+    return wav.reshape(b, s)
+
+
 def residual_units_kernel(kp: dict, y: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel sequence on a CUDA tensor y [B, S, C]."""
+    """Launch the kernels on a CUDA tensor y [B, S, C]: the bf16
+    tensor-core conv for bf16 weights, the exact fp32 GEMM sequence for
+    fp32 weights."""
     global launches
     b, s, c = y.shape
     _build.require(y, "y", dtype=(torch.float32, torch.bfloat16))
     for name in ("u_a1", "u_binv1", "u_b1", "u_a2", "u_binv2", "u_b2"):
         _build.require(kp[name], name, dtype=torch.float32, shape=(3, c))
+    if kp["u_w1"].dtype == torch.bfloat16:
+        out = _units_mma(kp, y)
+        launches += 1
+        return out
     rows = b * s
     tail = "t_w" in kp
     g = "qt_units_gemm"

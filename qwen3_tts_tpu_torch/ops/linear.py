@@ -14,8 +14,8 @@ Param dict conventions (as in qwen3_tts_tpu/ops/linear.py):
 Stacked table sets carry a leading group axis. int8 linears and stacked
 lm_heads go through the K3 kernel (ops/cuda/quant_matmul.py) on the card,
 packed ones through K7 (ops/cuda/packed_matmul.py); `w8r` entries are plain
-large products (torch.matmul on the int8 values cast to x's dtype, with the
-dequant folded into the output: y*s + m*sum(x)). Table lookups gather the
+large products (torch.matmul in fp32 on the int8 values, with the dequant
+folded into the output: y*s + m*sum(x)). Table lookups gather the
 requested rows and dequantize only those, in torch.
 """
 
@@ -29,8 +29,19 @@ from .quant import dequantize_torch, derive_packed_dims
 
 
 def _w8r_linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x @ (s * q + m).T without forming the dense weight."""
-    y = torch.matmul(x, params["w8r"].to(x.dtype).transpose(-1, -2)).float()
+    """x @ (s * q + m).T without forming the dense weight. The product
+    x @ q.T is taken in fp32, as the JAX package's is
+    (preferred_element_type=float32): both operands are widened to fp32,
+    which is exact for bf16 activations and int8 weights, and on the card
+    TF32 is turned off for it, so neither the product nor its sum is
+    rounded before the dequant y*s + m*sum(x). Only the result is cast to
+    x's dtype."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y = torch.matmul(x.float(), params["w8r"].float().transpose(-1, -2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     s = params["s"][..., 0, :].float()
     m = params["m"][..., 0, :].float()
     xsum = x.float().sum(-1, keepdim=True)

@@ -26,8 +26,9 @@ loaded weights; for a pre-quantized checkpoint or the int8 mode their
 rowwise int8 trees are the only resident copy of the layer weights, the
 codec head and the cp tables (prefill reads them through `w8r` views),
 while in the mixed mode the packed copies stay resident beside them. The
-vocoder runs K4/K5/K6 when use_vocoder_kernels is set. The speaker and
-audio encoders (plain PyTorch, fp32) load when their weights are present.
+vocoder runs K4/K5/K6 when use_vocoder_kernels resolves on (_knob). The
+speaker and audio encoders (plain PyTorch, fp32) load when their weights
+are present.
 """
 
 from __future__ import annotations
@@ -82,10 +83,12 @@ class Qwen3TTSPipelineConfiguration:
     """Pipeline options. apply_runtime_quantization: quantize a checkpoint
     that is not pre-quantized at load, in runtime_quantization_mode "int8"
     (K3) or any other mode, which is the mixed 4/6-bit scheme (K7).
-    use_talker_megakernel / use_cp_megakernel: None means on when the
-    pipeline's device is CUDA (the JAX package turns them on for its
-    accelerator); True on the CPU runs their plain versions; False runs the
-    layer-by-layer path."""
+    use_talker_megakernel / use_cp_megakernel / use_vocoder_kernels: None
+    means on when the pipeline's device is CUDA (the JAX package turns them
+    on for its accelerator); True on the CPU runs the kernels' plain
+    versions; False runs the layer-by-layer path (the dense vocoder). The
+    environment variables QWEN3TTS_TALKER_KERNEL, QWEN3TTS_CP_KERNEL and
+    QWEN3TTS_VOCODER_KERNEL override them (_knob)."""
 
     apply_runtime_quantization: bool = True
     runtime_quantization_mode: str = "int8"
@@ -95,7 +98,20 @@ class Qwen3TTSPipelineConfiguration:
     crossfade_samples: int = 480
     use_cp_megakernel: bool | None = None
     use_talker_megakernel: bool | None = None
-    use_vocoder_kernels: bool = True
+    use_vocoder_kernels: bool | None = None
+
+
+def _knob(cfg_value: bool | None, env_name: str, device: torch.device) -> bool:
+    """A kernel switch, resolved as the JAX pipeline resolves it: the
+    environment variable wins (any value but 0 / false / no / off / empty
+    turns the kernel on), then the configuration value, then auto: on for a
+    CUDA device."""
+    env = os.environ.get(env_name)
+    if env is not None:
+        return env.strip().lower() not in ("0", "false", "no", "off", "")
+    if cfg_value is None:
+        return device.type == "cuda"
+    return cfg_value
 
 
 class Qwen3TTSError(Exception):
@@ -197,9 +213,8 @@ class Qwen3TTSPipeline:
                                 if spk_keys else None)
         del weights
         pc = self.pipeline_config
-        on_cuda = self.device.type == "cuda"
-        use_talker_k = on_cuda if pc.use_talker_megakernel is None else pc.use_talker_megakernel
-        use_cp_k = on_cuda if pc.use_cp_megakernel is None else pc.use_cp_megakernel
+        use_talker_k = _knob(pc.use_talker_megakernel, "QWEN3TTS_TALKER_KERNEL", self.device)
+        use_cp_k = _knob(pc.use_cp_megakernel, "QWEN3TTS_CP_KERNEL", self.device)
         prequant = self.config.quantization is not None
         rq = pc.apply_runtime_quantization and not prequant
         int8_mode = pc.runtime_quantization_mode == "int8"
@@ -261,7 +276,7 @@ class Qwen3TTSPipeline:
             self.audio_encoder = AudioEncoder.from_weights(enc_keys, self.speech_config,
                                                            device=self.device)
         del st_weights
-        if self.pipeline_config.use_vocoder_kernels:
+        if _knob(pc.use_vocoder_kernels, "QWEN3TTS_VOCODER_KERNEL", self.device):
             self.vocoder_params["kernel"] = voc.build_vocoder_kernel_params(
                 self.vocoder_params, dec_cfg, dtype
             )
@@ -420,7 +435,12 @@ class Qwen3TTSPipeline:
         frames of re-decoded left context, flush the remainder, then an empty
         final sentinel. As in the reference, is_final may come TWICE (the
         flushed remainder and the sentinel). Streaming skips the code
-        predictor's repetition sets."""
+        predictor's repetition sets. Each window's vocoder call and its copy
+        to the host are queued without waiting; the first window ships at
+        once, and every later one is pulled only after the next window is
+        queued, so its copy rides under the next decode chunk (as the JAX
+        pipeline does). Chunk contents and token ranges are those of
+        decoding each window in turn."""
         chunk = chunk_size or self.pipeline_config.default_streaming_chunk_size
         next_decode = first_decode_chunk or DECODE_CHUNK_SIZE
         pd = self._assemble(text, speaker, instruct=instruct,
@@ -440,6 +460,12 @@ class Qwen3TTSPipeline:
             buffered = np.zeros((0, self.config.code_predictor_config.num_code_groups),
                                 np.int32)
             left_context = None
+            pending = None  # (pull, token range) of the window not yet shipped
+
+            def ship(item) -> AudioChunk:
+                pull, token_range = item
+                return AudioChunk(sanitize_samples(pull()), token_range, False)
+
             for frames in code_stream:
                 valid = gen_mod.filter_valid_frames(frames)
                 if len(valid) == 0:
@@ -448,9 +474,17 @@ class Qwen3TTSPipeline:
                 while len(buffered) >= next_decode:
                     batch, buffered = buffered[:next_decode], buffered[next_decode:]
                     next_decode = DECODE_CHUNK_SIZE
-                    samples, left_context = self._decode_with_context(batch, left_context)
+                    pull, left_context = self._dispatch_decode_with_context(batch, left_context)
                     total += len(batch)
-                    yield AudioChunk(sanitize_samples(samples), (total - len(batch), total), False)
+                    item = (pull, (total - len(batch), total))
+                    if total == len(batch):
+                        yield ship(item)  # first audio ships at once
+                        continue
+                    if pending is not None:
+                        yield ship(pending)
+                    pending = item
+            if pending is not None:
+                yield ship(pending)
             if len(buffered):
                 samples, left_context = self._decode_with_context(buffered, left_context)
                 total += len(buffered)

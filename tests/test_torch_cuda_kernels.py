@@ -4,7 +4,11 @@ CPU mode). Run on a GPU host with:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Tolerance: rel RMS <= 1e-4 in fp32 (sums in another order)."""
+Tolerance: rel RMS <= 1e-4 in fp32 (sums in another order). With bf16
+weights K4 and K6 run on the tensor cores and their plain versions round
+the same operands to bf16: rel RMS <= 1e-3 (fp32 sums in another order, the
+card's sinf / cosf / expf against torch's, and the rare operand that lands
+on the other side of a bf16 rounding boundary)."""
 
 import pytest
 import torch
@@ -14,7 +18,7 @@ from qwen3_tts_tpu_torch.ops.cuda import pretransformer_kernel as ptk
 from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 from qwen3_tts_tpu_torch.ops.cuda import upsample_kernel as upk
 from qwen3_tts_tpu_torch.ops.cuda import vocoder_kernels as vk
-from qwen3_tts_tpu_torch.testing import random_vocoder_params
+from qwen3_tts_tpu_torch.testing import random_vocoder_params, tiny_decoder_config
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -74,3 +78,38 @@ def test_vocoder_kernels(dev):
                                           tail=tail if i == 1 else None)
         y = torch.randn(2, 90, bp["u_w2"].shape[-1], generator=g, device=dev) * 0.5
         assert rel_rms(vk.residual_units_fused(bp, y), vk.residual_units_plain(bp, y)) <= 1e-4
+
+
+def test_bf16_tensor_core_kernels(dev):
+    """K4 (one persistent cooperative launch, one device kernel a call) and
+    K6 (the tensor-core conv) with bf16 weights, B = 2 and T = 19 (ragged
+    64-row tiles), at CFG's widths (C = 80 and 40: ragged 64-column tiles)
+    and the tiny config's (head_dim 8)."""
+    for cfg in (CFG, tiny_decoder_config()):
+        p = random_vocoder_params(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        kp = ptk.build_pretransformer_params(p["pre_transformer"], cfg, torch.bfloat16)
+        kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(2, 19, cfg.latent_dim, generator=g, device=dev).to(dt)
+            before = ptk.launches
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                got = ptk.pre_transformer_packed(kp, x, **kw)
+                torch.cuda.synchronize()
+            assert ptk.launches == before + 1
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            assert len(kernels) == 1 and "persistent" in kernels[0], kernels
+            assert rel_rms(got, ptk.pre_transformer_plain(kp, x, **kw)) <= 1e-3
+
+        dec = p["decoder"]
+        tail = {"snake": dec["out_snake"], "conv": dec["out_conv"]}
+        last = len(cfg.upsample_rates) - 1
+        for i, rate in enumerate(cfg.upsample_rates):
+            bp = vk.build_seanet_block_params(dec["blocks"][i], rate, torch.bfloat16,
+                                              tail=tail if i == last else None)
+            y = torch.randn(2, 90, bp["u_w2"].shape[-1], generator=g, device=dev) * 0.5
+            before = vk.launches
+            got = vk.residual_units_fused(bp, y)
+            assert vk.launches == before + 1
+            assert rel_rms(got, vk.residual_units_plain(bp, y)) <= 1e-3

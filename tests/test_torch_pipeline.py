@@ -82,7 +82,9 @@ def pipes(tmp_path_factory):
             use_cp_megakernel=False, use_talker_megakernel=False, use_vocoder_kernels=False
         ), dtype=jnp.float32,
     )
-    tpl = tpipe.Qwen3TTSPipeline(d, device="cpu", dtype=torch.float32)
+    tpl = tpipe.Qwen3TTSPipeline(
+        d, tpipe.Qwen3TTSPipelineConfiguration(use_vocoder_kernels=True),
+        device="cpu", dtype=torch.float32)
     assert "w8" in tpl.cp_params["layers"]["qkv_proj"]
     assert "w8" in tpl.params["text_projection"]["fc1"]
     assert tpl.vocoder_params["kernel"]["pre_transformer"] is not None
