@@ -17,16 +17,20 @@ non-zero):
                 weight bytes per second they reach, the cost of one grid
                 barrier (a launch of n barriers) times the barriers a step
                 and a frame make
-  kernels     - K3, K4, K4a, K5, K6 and K7 against their plain PyTorch
-                versions at the 0.6B main path's shapes, fp32 and bf16, with
-                times and bounds (K7 at 4 and 6 bits on the mixed mode's
+  kernels     - K3, K4, K4a, K5, K6, K7 and the SEANet blocks' upsample
+                against their plain PyTorch versions at the 0.6B main path's
+                shapes, fp32 and bf16, with times and bounds (K7 at 4 and 6
+                bits on the mixed mode's
                 linears, and one 2-, 3- and 8-bit shape, each at M = 1 and
                 M = 300; K4a at T = 26 and 110, B = 1 and 2, also against K4
                 on the same weights, and at T = 300, whose q/k/v do not fit
-                in shared memory); K4 and K6 with bf16 weights (the
-                persistent launch and the tensor-core conv) at T = 26 and
-                110 and B = 2, their TFLOP/s, K4's event against its
-                profiler device time and one device kernel a call, and one
+                in shared memory); K4, K5 and K6 with bf16 weights (the
+                persistent launches and the tensor-core conv) at T = 26 and
+                110 (K4, K6 also B = 2; K5 from fp32 and bf16 input), their
+                TFLOP/s (K5 also its share of the bytes bound), K4's and
+                K5's event against their profiler device time and one
+                device kernel a call; the blocks' upsample (the 2-tap
+                tensor-core conv) at blocks 0-3, T = 26 and 110; and one
                 bf16 torch conv1d of block 0's first 7-tap conv beside K6's
                 launch of it, as a yardstick for the tile (the port never
                 calls conv1d)
@@ -41,8 +45,9 @@ non-zero):
   pipeline    - the default configuration (megakernels on): a random-weight
                 0.6B model dir, Qwen3TTSPipeline in bf16, generate() and
                 generate_stream(); checks the audio and that K1, K2,
-                K3 (text projection), K4, K5, K6 ran (K2g's kernel not, its
-                draws made inside K2); a decode chunk with no
+                K3 (text projection), K4, K5, K6 and the blocks' upsample ran
+                (K2g's kernel not, its draws made inside K2); K3 timed at the
+                text projection's own shapes; a decode chunk with no
                 host sync; K1/K2 against their plain versions teacher-forced
                 over the generated frames; the kernel vocoder against the
                 plain one, with fp32 and with bf16 kernel weights; the
@@ -69,7 +74,8 @@ non-zero):
                 (held against the port's CPU run in fp32), generate with that
                 embedding, generate_icl, generate_batch on three sentences,
                 generate_to_file, warmup; RTF per mode, encoder times,
-                resident bytes, and K1, K2, K3, K4, K5, K6 launched,
+                resident bytes, and K1, K2, K3, K4, K5, K6 and the blocks'
+                upsample launched,
                 K2g's kernel, K4a and K7 not
 The line before the last is {"kernels": [...]} and the last is
 {"ok": true, "device": {...}}.
@@ -141,7 +147,12 @@ KERNELS = {
                       "qwen3_tts_tpu/ops/pallas/quant_matmul.py:93"),
     "pre_transformer_fused": ("qwen3_tts_tpu_torch/csrc/pretransformer.cu",
                               "qwen3_tts_tpu/ops/pallas/pretransformer_kernel.py:51"),
+    # the counterpart of plain XLA (seanet_block_fused's two products), not
+    # of a Pallas kernel: K6's tensor-core conv with 2 taps
+    "block_upsample": ("qwen3_tts_tpu_torch/csrc/vocoder_units.cu",
+                       "qwen3_tts_tpu/ops/pallas/vocoder_kernels.py:410"),
 }
+PLAIN_XLA = {"block_upsample"}  # KERNELS entries that replace plain XLA code
 TEXT = ("The quick brown fox jumps over the lazy dog, and then it runs far "
         "away into the quiet green forest.")
 
@@ -179,7 +190,8 @@ def counters() -> dict:
             "cp_frame": (cp_megakernel, "launches"),
             "gumbel_sample": (gumbel_sampler, "launches"),
             "packed_matmul": (packed_matmul, "launches"),
-            "pre_transformer_fused": (pretransformer_kernel, "fused_launches")}
+            "pre_transformer_fused": (pretransformer_kernel, "fused_launches"),
+            "block_upsample": (vocoder_kernels, "upsample_launches")}
 
 
 def reset_counts() -> None:
@@ -345,6 +357,24 @@ def phase_kernels(rec: Record) -> None:
                             lambda: ptk.pre_transformer_kernel(kp, x, **kw),
                             time_ms(lambda: ptk.pre_transformer_kernel(kp, x, **kw), 20)[0],
                             b * (2 * t * mats + attn))
+    # K5 with bf16 weights is one cooperative launch a stage call, from the
+    # pipeline's fp32 input and from bf16 input
+    stages = dense["upsample"]
+    ups = {dt: [upk.build_upsample_stage_params(
+        st, dt, initial_conv=dense["decoder"]["initial_conv"] if i == len(stages) - 1 else None)
+        for i, st in enumerate(stages)] for dt in (torch.float32, torch.bfloat16)}
+    for i, sp in enumerate(ups[torch.bfloat16]):
+        for xdt in (torch.float32, torch.bfloat16):
+            t = 26 * 2 ** i
+            x = randn(1, t, cfg.latent_dim).to(xdt)
+            one_kernel_per_call("upsample_stage", f"stage{i} T={t} x {str(xdt)[6:]}",
+                                lambda: upk.upsample_stage_kernel(sp, x),
+                                time_ms(lambda: upk.upsample_stage_kernel(sp, x), 20)[0],
+                                upsample_ops(sp, t))
+    for t in (26, 110):
+        x = randn(1, t, cfg.latent_dim)
+        for i, sp in enumerate(ups[torch.bfloat16]):
+            x = upsample_phases(sp, x, f"stage{i} T={x.shape[1]}")
 
     # K3 at every linear shape of the 0.6B talker / code predictor
     # (qkv, o, gate/up, down, codec_head, text fc1, fc2, cp lm_head)
@@ -432,22 +462,27 @@ def phase_kernels(rec: Record) -> None:
             if not vs_k4 <= K4A_VS_K4[dtype]:
                 raise SystemExit("K4a disagrees with K4 on the same weights")
 
-        stages = dense["upsample"]
+        # K5 at the stream window's and the generate window's rows; the
+        # pipeline hands it fp32 input (timed), bf16 input checked beside it
         for t in (26, 110):
-            x = randn(1, t, cfg.latent_dim).to(dt)
-            for i, stage in enumerate(stages):
-                ic = dense["decoder"]["initial_conv"] if i == len(stages) - 1 else None
-                sp = upk.build_upsample_stage_params(stage, dt, initial_conv=ic)
-                got = upk.upsample_stage_kernel(sp, x)
-                c = x.shape[-1]
-                ops = (2 * t * sp["up_w"].numel()
-                       + 2 * 2 * t * (weight_numel(sp, ("pw1_w", "pw2_w", "ic_w")) + 7 * c))
-                rec.compare("upsample_stage", f"stage{i} T={t}", dtype, got,
-                            upk.upsample_stage_plain(sp, x),
-                            time_ms(lambda: upk.upsample_stage_kernel(sp, x), 5),
-                            time_ms(lambda: upk.upsample_stage_plain(sp, x), 5),
-                            nbytes(x, got, *sp.values()), {dtype: ops})
-                x = got
+            for xdt in (dt,) if dtype == "float32" else (torch.float32, torch.bfloat16):
+                x = randn(1, t, cfg.latent_dim).to(xdt)
+                for i, sp in enumerate(ups[dt]):
+                    got = upk.upsample_stage_kernel(sp, x)
+                    ti = x.shape[1]
+                    timing = time_ms(lambda: upk.upsample_stage_kernel(sp, x), 10)
+                    nb = nbytes(x, got, *sp.values())
+                    rec.compare("upsample_stage", f"stage{i} T={ti} x {str(xdt)[6:]}", dtype, got,
+                                upk.upsample_stage_plain(sp, x), timing,
+                                time_ms(lambda: upk.upsample_stage_plain(sp, x), 5),
+                                nb, {dtype: upsample_ops(sp, ti)}, timed=xdt == torch.float32)
+                    if dtype == "bfloat16":
+                        b_ms = bound(nb, {dtype: upsample_ops(sp, ti)})[0]
+                        log(f"[kernels] upsample_stage stage{i} T={ti} x {str(xdt)[6:]} bf16: "
+                            f"{upsample_ops(sp, ti) / timing[0] / 1e9:.1f} TFLOP/s of the card's "
+                            f"989, {100 * b_ms / timing[0]:.1f}% of the bytes bound "
+                            f"({nb / timing[0] / 1e9:.3f} TB/s of 3.35)")
+                    x = got
 
         blocks = dense["decoder"]["blocks"]
         for b, t in ((1, 26), (1, 110), (2, 26)):
@@ -458,7 +493,16 @@ def phase_kernels(rec: Record) -> None:
                     tail = {"snake": dense["decoder"]["out_snake"],
                             "conv": dense["decoder"]["out_conv"]}
                 bp = vk.build_seanet_block_params(block, rate, dt, tail=tail)
-                y = vk.block_upsample(bp, x, rate=rate)
+                y = vk.block_upsample_kernel(bp, x, rate=rate)
+                up_ops = 2 * x.shape[0] * x.shape[1] * bp["up_w"].numel()
+                rec.compare("block_upsample", f"block{i} B={b} T={x.shape[1]}", dtype, y,
+                            vk.block_upsample_plain(bp, x, rate=rate),
+                            time_ms(lambda: vk.block_upsample_kernel(bp, x, rate=rate), 10),
+                            time_ms(lambda: vk.block_upsample_plain(bp, x, rate=rate), 3),
+                            nbytes(x, y, bp["up_w"], bp["up_b"], bp["snake_a"],
+                                   bp["snake_binv"]), {dtype: up_ops}, timed=b == 1)
+                if dtype == "bfloat16" and b == 1:
+                    upsample_yardstick(bp, x, rate, f"block{i} T={x.shape[1]}")
                 got = vk.residual_units_kernel(bp, y)
                 rows = y.shape[0] * y.shape[1]
                 ops = 2 * rows * weight_numel(bp, ("u_w1", "u_w2", "t_w"))
@@ -475,6 +519,37 @@ def phase_kernels(rec: Record) -> None:
                         conv_yardstick(bp, y)
                 x = got if got.dim() == 3 else None
     torch.cuda.synchronize()
+
+
+def upsample_ops(sp: dict, t: int) -> int:
+    """2 x the multiply-adds of one K5 stage call on [1, t, C]: the up
+    GEMM, the depthwise taps and the 2t-row pointwise GEMMs (and the
+    initial conv)."""
+    c = sp["dw"].shape[1]
+    return (2 * t * sp["up_w"].numel()
+            + 2 * 2 * t * (weight_numel(sp, ("pw1_w", "pw2_w", "ic_w")) + 7 * c))
+
+
+def upsample_phases(sp: dict, x, label: str):
+    """K5's time by phase (bf16 weights, fp32 input as the pipeline's):
+    the kernel's own clock at each phase boundary (upsample_stage_kernel's
+    `stamps`), the median of 9 calls; returns the stage's output."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import upsample_kernel as upk
+
+    names = upk.stage_phases("ic_w" in sp, x.dtype == torch.float32)
+    stamps = torch.zeros(len(names) + 1, dtype=torch.int64, device=x.device)
+    runs = []
+    for _ in range(9):
+        out = upk.upsample_stage_kernel(sp, x, stamps=stamps)
+        torch.cuda.synchronize()
+        runs.append(stamps.diff().double().cpu() / 1e3)
+    us = torch.stack(runs).median(0).values.tolist()
+    log(f"[kernels] upsample_stage {label} bf16 by phase (us, each up to and with its barrier; "
+        f"median of 9): " + ", ".join(f"{n} {v:.1f}" for n, v in zip(names, us))
+        + f"; sum {sum(us):.1f}")
+    return out
 
 
 def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int) -> None:
@@ -541,6 +616,29 @@ def conv_yardstick(bp: dict, y) -> None:
     log(f"[kernels] yardstick, block 0's first 7-tap conv at S={s}, C={c}: K6's launch "
         f"{k_ms:.4f} ms ({k_how}, {ops / k_ms / 1e9:.1f} TFLOP/s), one bf16 torch conv1d "
         f"{l_ms:.4f} ms ({l_how}, {ops / l_ms / 1e9:.1f} TFLOP/s)")
+
+
+def upsample_yardstick(bp: dict, x, rate: int, label: str) -> None:
+    """The block upsample's 2-tap conv beside the form it replaced: SnakeBeta
+    and two bf16 torch matmuls whose bf16 products are summed (not the JAX
+    package's function, which keeps the products in fp32; no port path
+    calls it)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import vocoder_kernels as vk
+
+    b, t, cin = x.shape
+
+    def matmuls():
+        xs = vk._snake(x.float(), bp["snake_a"], bp["snake_binv"]).bfloat16()
+        prev = torch.nn.functional.pad(xs, (0, 0, 1, 0))[:, :t]
+        acc = (xs @ bp["up_w"][cin:]).float() + (prev @ bp["up_w"][:cin]).float()
+        return (acc + bp["up_b"]).reshape(b, t * rate, -1).to(x.dtype)
+
+    k_ms, k_how = time_ms(lambda: vk.block_upsample_kernel(bp, x, rate=rate), 20)
+    m_ms, m_how = time_ms(matmuls, 20)
+    log(f"[kernels] yardstick, block_upsample {label}: the 2-tap conv {k_ms:.4f} ms ({k_how}), "
+        f"the SnakeBeta + two bf16 torch matmuls it replaced {m_ms:.4f} ms ({m_how})")
 
 
 def chisq_pvalue(counts, probs) -> float:
@@ -908,6 +1006,38 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
         f"{metrics['resident_bytes']} bytes ({card}, bf16)")
     check_counts(label, launches, need, idle)
     return pl, launches, metrics
+
+
+def text_projection_k3(pl, card: str) -> None:
+    """K3 at the shapes the prompt's text projection hands it on this
+    configuration (its only K3 launches): each shape's time beside its
+    bound, from the calls one prompt assembly makes."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    calls = []
+    kernel = qm.int8_matmul_kernel
+
+    def recording(x, w8, s, b):
+        calls.append((x, w8, s, b))
+        return kernel(x, w8, s, b)
+
+    qm.int8_matmul_kernel = recording
+    try:
+        pl._assemble(TEXT, "aiden")
+    finally:
+        qm.int8_matmul_kernel = kernel
+    torch.cuda.synchronize()
+    seen = {}
+    for x, w8, s, b in calls:
+        seen.setdefault((x.shape[0], w8.shape[1], w8.shape[0], str(x.dtype)[6:]), (x, w8, s, b))
+    for (m, k, o, dt), (x, w8, s, b) in seen.items():
+        n = sum(1 for c in calls if (c[0].shape[0], c[1].shape[1], c[1].shape[0]) == (m, k, o))
+        ms, how = time_ms(lambda: kernel(x, w8, s, b), 20)
+        b_ms, b_by = bound(nbytes(x, w8, s, b) + m * o * x.element_size(), {dt: 2 * m * k * o})
+        log(f"[pipeline] K3 in the text projection: M={m} K={k} O={o} {dt}, {n} launch(es) a "
+            f"prompt: {ms:.4f} ms ({how}) against a bound of {b_ms:.4f} ms ({b_by}) ({card})")
 
 
 def no_sync_chunk(pl, label: str) -> None:
@@ -1286,7 +1416,8 @@ def phase_modes(card: str, d: str):
     log(f"[{label}] warmup: {m['warmup_s']:.2f} s")
     launches = read_counts()
     check_counts(label, launches, need=("talker_step", "cp_frame", "int8_matmul",
-                                        "pre_transformer", "upsample_stage", "residual_units"),
+                                        "pre_transformer", "upsample_stage", "residual_units",
+                                        "block_upsample"),
                  idle=("gumbel_sample", "packed_matmul", "pre_transformer_fused"))
 
     # the card's encoders (fp32, TF32 off) against the port's CPU run
@@ -1348,7 +1479,7 @@ def main() -> int:
 
     rec = Record()
     results, launches = {}, {}
-    vocoder = ("pre_transformer", "upsample_stage", "residual_units")
+    vocoder = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
     megakernels = ("talker_step", "cp_frame")
     sampler = ("gumbel_sample",)  # its kernel: K2 draws inside its own launch
     with tempfile.TemporaryDirectory() as d:
@@ -1367,6 +1498,7 @@ def main() -> int:
             card, d, "pipeline", None, need=megakernels + ("int8_matmul",) + vocoder,
             idle=sampler + ("packed_matmul",))
         no_sync_chunk(pl, "pipeline")
+        text_projection_k3(pl, card)
         teacher_forced(pl, card)
         vocoder_check(pl)
         vocoder_windows(pl, card)
@@ -1441,6 +1573,8 @@ def main() -> int:
             row["launches"] = launches["fused_path"][name]
         if name == "gumbel_sample":  # its own entry point
             row["launches"] = launches["sampler_path"][name]
+        if name in PLAIN_XLA:
+            row["counterpart_of"] = "plain XLA"
         for path in ("k3_path", "mixed", "prequant", "modes"):
             row[f"launches_{path}"] = launches[path][name]
         rows.append(row)

@@ -45,6 +45,14 @@
 // gemm.cuh, two launches a unit with SnakeBeta in the prologue and the
 // tail as one more 7-tap GEMM; the wrapper picks the path by the weights'
 // dtype.
+//
+// The block's upsample before the units (plain XLA in the JAX package:
+// seanet_block_fused's two products with fp32 results) is the same conv
+// with 2 taps: out[t] = bias + a[t - 1] @ W_hi + a[t] @ W_lo over
+// N = rate * Cout columns, where column half p of row t is output sample
+// t * rate + p, so [T, rate * Cout] already is the interleaved
+// [T * rate, Cout]. Its operand a = bf16(SnakeBeta(x)) comes from
+// qt_snake_bf16_kernel (ops/cuda/vocoder_kernels.py::block_upsample).
 
 #include "gemm.cuh"
 #include "mma.cuh"
@@ -69,14 +77,14 @@ struct QtConvArgs {
 
 namespace {
 
-constexpr int QT_CV_HMAX = 6 * 9;  // the longest reach: 7 taps at dilation 9
+constexpr int QT_CV_DMAX = 9;  // the largest dilation
 
 template <int BM, int BN, int TAPS>
 struct QtConvTile {
   static constexpr int BK = TAPS == 1 ? 64 : 32;  // input channels per chunk
   static constexpr int NT = (BM / 32) * (BN / 32) * 32;
   static constexpr int LDA = BK + 8, LDW = BN + 8;  // padded rows: no bank conflicts
-  static constexpr int SRMAX = BM + (TAPS > 1 ? QT_CV_HMAX : 0);
+  static constexpr int SRMAX = BM + (TAPS - 1) * QT_CV_DMAX;  // the longest reach
   static constexpr int WST = TAPS * BK * LDW;  // elements of one weight stage
   static constexpr int SST = SRMAX * LDA;      // elements of one strip stage
   static constexpr int SMEM = (2 * WST + 2 * SST) * 2;
@@ -264,13 +272,15 @@ extern "C" int qt_units_gemm(const QtGemmArgs* g, void* stream) {
                      : qt_gemm_launch<false, true>(g, stream);
 }
 
-// One bf16 tensor-core conv launch with tile (bm, bn): taps 7 (dil <= 9)
-// or 1; C % 8 == 0, N % 8 == 0.
+// One bf16 tensor-core conv launch with tile (bm, bn): taps 7 (dil <= 9),
+// 2 (the block upsample) or 1; C % 8 == 0, N % 8 == 0.
 extern "C" int qt_units_conv(const QtConvArgs* g, int bm, int bn, void* stream) {
   if (g->B <= 0 || g->S <= 0) return 0;
-  if (g->N % 8 || g->C % 8 || g->dil < 1 || g->dil > 9) return (int)cudaErrorInvalidValue;
+  if (g->N % 8 || g->C % 8 || g->dil < 1 || g->dil > QT_CV_DMAX)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (g->taps == 7) return qt_conv_dispatch<7>(*g, bm, bn, st);
+  if (g->taps == 2) return qt_conv_dispatch<2>(*g, bm, bn, st);
   if (g->taps == 1) return qt_conv_dispatch<1>(*g, bm, bn, st);
   return (int)cudaErrorInvalidValue;
 }

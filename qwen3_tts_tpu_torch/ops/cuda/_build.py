@@ -118,6 +118,8 @@ _SIGNATURES = {
     "qt_pt_persistent_grid": [_I, _P],
     "qt_up_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_up_dwconv_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "qt_up_persistent": [_P, _I, _I, _P],
+    "qt_up_persistent_grid": [_I, _P],
     "qt_units_gemm": [ctypes.POINTER(GemmArgs), _P],
     "qt_units_conv": [_P, _I, _I, _P],
     "qt_units_snake": [_P, _I, _P, _P, _P, _LL, _I, _P],

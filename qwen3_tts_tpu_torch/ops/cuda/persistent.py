@@ -36,6 +36,12 @@ class Plan(ctypes.Structure):
         "grid:i smem:i buf:i xf:i lnf:i xq:i xrow:i att:i nch:i S:i")
 
 
+def block_items(items: int, grid: int, block: int) -> range:
+    """The items a block takes in a phase of K4's or K5's persistent
+    kernel: round robin from its index."""
+    return range(block, items, grid)
+
+
 def row_span(rows: int, grid: int, block: int) -> tuple[int, int]:
     """Block `block`'s output rows [lo, hi) of a GEMV phase (qt_span)."""
     return block * rows // grid, (block + 1) * rows // grid

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import _build, persistent
+from .persistent import block_items  # noqa: F401  (K4's dealing, as K5's)
 
 launches = 0  # K4 calls (kernel launches or sequences) since the last reset
 fused_launches = 0  # K4a kernel-sequence launches since the last reset
@@ -74,11 +75,6 @@ def gemm_items(m: int, n: int, paired: bool, bm: int) -> int:
 def attention_items(b: int, t: int, nh: int) -> int:
     """(sequence, head, PT_QROWS query rows) items of an attention phase."""
     return b * nh * -(-t // PT_QROWS)
-
-
-def block_items(items: int, grid: int, block: int) -> range:
-    """The items a block takes in a phase: round robin from its index."""
-    return range(block, items, grid)
 
 
 def persistent_layout(lat: int, hid: int, d: int, hd: int,

@@ -5,12 +5,12 @@ Counterpart of qwen3_tts_tpu/ops/pallas/vocoder_kernels.py::
 residual_units_fused / seanet_block_fused. A decoder block is SnakeBeta ->
 causal transposed-conv upsample (stride r) -> three dilated residual units
 (d = 1, 3, 9); the last block also carries out_snake -> out_conv (k=7,
-Cout=1) -> clip. The SnakeBeta and the phase-decomposed upsample before the
-units stay plain torch ops (a matmul), as they are plain XLA in the JAX
-package; the units (and the tail) are the kernel. With bf16 weights (the
-pipeline's) the units run on the tensor cores (qt_units_conv, bf16
-operands, fp32 sums); with fp32 weights on the exact fp32 GEMM of
-csrc/gemm.cuh. The wrapper picks by the weights' dtype.
+Cout=1) -> clip. The units (and the tail) are the kernel. The SnakeBeta and
+the phase-decomposed upsample before them, plain XLA in the JAX package,
+are a causal 2-tap conv here (block_upsample), on the same launches as the
+units. With bf16 weights (the pipeline's) both run on the tensor cores
+(qt_units_conv, bf16 operands, fp32 sums); with fp32 weights on the exact
+fp32 GEMM of csrc/gemm.cuh. The wrappers pick by the weights' dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from . import _build, persistent
 
 DILATIONS = (1, 3, 9)
 launches = 0  # kernel-sequence launches since the last reset
+upsample_launches = 0  # block_upsample launches since the last reset
 
 # bf16 tensor-core conv tiles (BM rows x BN columns) of csrc/vocoder_units.cu,
 # largest first
@@ -74,10 +75,12 @@ def build_seanet_block_params(
     a0, b0 = _snake_params(block["snake"])
     kp = {
         "snake_a": a0, "snake_binv": b0,
-        # out[t*r + p] = x[t] @ w_up[2r-1-p] + x[t-1] @ w_up[r-1-p]
-        "w_lo": wd(torch.cat([w_up[2 * rate - 1 - p] for p in range(rate)], dim=1)),
-        "w_hi": wd(torch.cat([w_up[rate - 1 - p] for p in range(rate)], dim=1)),
-        "up_b": block["up"]["b"].float().contiguous(),
+        # out[t*r + p] = x[t-1] @ w_up[r-1-p] + x[t] @ w_up[2r-1-p]: the taps
+        # [w_hi; w_lo] of a causal 2-tap conv to r * Cout columns, where
+        # column half p of row t is output row t*r + p; the bias tiled r times
+        "up_w": wd(torch.cat([torch.cat([w_up[rate - 1 - p] for p in range(rate)], dim=1),
+                              torch.cat([w_up[2 * rate - 1 - p] for p in range(rate)], dim=1)])),
+        "up_b": block["up"]["b"].float().repeat(rate).contiguous(),
         "u_a1": torch.stack([s[0] for s in snakes1]),
         "u_binv1": torch.stack([s[1] for s in snakes1]),
         "u_w1": wd(torch.stack([u["conv1"]["w"].reshape(7 * cout, cout) for u in units])),
@@ -233,15 +236,58 @@ def residual_units_fused(kp: dict, y: torch.Tensor) -> torch.Tensor:
     return residual_units_plain(kp, y)
 
 
-def block_upsample(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tensor:
-    """SnakeBeta + causal transposed-conv upsample as torch ops (one matmul
-    per phase pair): x [B, T, Cin] -> [B, T * rate, Cout] in x's dtype."""
-    b, t, _ = x.shape
-    wdt = kp["w_lo"].dtype
-    xs = _snake(x.float(), kp["snake_a"], kp["snake_binv"]).to(wdt)
+def block_upsample_plain(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tensor:
+    """Plain PyTorch version of block_upsample: SnakeBeta, its output
+    rounded to the weights' dtype (JAX's cast to its compute dtype), then
+    both taps as fp32 products of the widened operands, so products are
+    exact and sums fp32 as JAX's preferred_element_type=float32; bias, and
+    the cast to x's dtype."""
+    b, t, cin = x.shape
+    xs = _snake(x.float(), kp["snake_a"], kp["snake_binv"]).to(kp["up_w"].dtype).float()
     prev = torch.nn.functional.pad(xs, (0, 0, 1, 0))[:, :t]
-    acc = (xs @ kp["w_lo"]).float() + (prev @ kp["w_hi"]).float()
-    return (acc.reshape(b, t * rate, -1) + kp["up_b"]).to(x.dtype)
+    w = kp["up_w"].float()
+    acc = prev @ w[:cin] + xs @ w[cin:] + kp["up_b"]
+    return acc.reshape(b, t * rate, -1).to(x.dtype)
+
+
+def block_upsample_kernel(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tensor:
+    """Launch the block's upsample on a CUDA tensor x [B, T, Cin] ->
+    [B, T * rate, Cout] in x's dtype: with bf16 weights the SnakeBeta
+    pre-pass writes the bf16 operand and the tensor-core conv (2 taps)
+    makes the output; with fp32 weights one exact fp32 GEMM launch with
+    SnakeBeta in its prologue."""
+    global upsample_launches
+    b, t, cin = x.shape
+    n = kp["up_w"].shape[1]
+    _build.require(x, "x", dtype=(torch.float32, torch.bfloat16))
+    _build.require(kp["up_w"], "up_w", dtype=(torch.float32, torch.bfloat16), shape=(2 * cin, n))
+    _build.require(kp["up_b"], "up_b", dtype=torch.float32, shape=(n,))
+    for name in ("snake_a", "snake_binv"):
+        _build.require(kp[name], name, dtype=torch.float32, shape=(cin,))
+    rows = b * t
+    out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
+    if kp["up_w"].dtype == torch.bfloat16:
+        if cin % 8 or n % 8:
+            raise ValueError(f"the bf16 block upsample needs Cin, N % 8 == 0 (got {cin}, {n})")
+        xs = torch.empty((rows, cin), dtype=torch.bfloat16, device=x.device)
+        _build.check(_build.lib().qt_units_snake(
+            x.data_ptr(), _build.is_bf16(x), kp["snake_a"].data_ptr(), kp["snake_binv"].data_ptr(),
+            xs.data_ptr(), rows * cin, cin, _build.stream()), "qt_units_snake")
+        _conv(xs, kp["up_w"], b=b, s=t, taps=2, dil=1, bias=kp["up_b"], out=out)
+    else:
+        _build.gemm("qt_units_gemm", x.reshape(rows, cin), kp["up_w"], out, seq=t, taps=2,
+                    alpha=kp["snake_a"], binv=kp["snake_binv"], bias=kp["up_b"])
+    upsample_launches += 1
+    return out.reshape(b, t * rate, n // rate)
+
+
+def block_upsample(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tensor:
+    """SnakeBeta + causal transposed-conv upsample, x [B, T, Cin] ->
+    [B, T * rate, Cout] in x's dtype: the kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if x.is_cuda:
+        return block_upsample_kernel(kp, x.contiguous(), rate=rate)
+    return block_upsample_plain(kp, x, rate=rate)
 
 
 def seanet_block_fused(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tensor:

@@ -5,10 +5,11 @@ CPU mode). Run on a GPU host with:
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
 Tolerance: rel RMS <= 1e-4 in fp32 (sums in another order). With bf16
-weights K4 and K6 run on the tensor cores and their plain versions round
-the same operands to bf16: rel RMS <= 1e-3 (fp32 sums in another order, the
-card's sinf / cosf / expf against torch's, and the rare operand that lands
-on the other side of a bf16 rounding boundary)."""
+weights K4, K5, K6 and the SEANet blocks' upsample run on the tensor cores
+and their plain versions round the same operands to bf16: rel RMS <= 1e-3
+(fp32 sums in another order, the card's sinf / cosf / expf / erff against
+torch's, and the rare operand that lands on the other side of a bf16
+rounding boundary)."""
 
 import pytest
 import torch
@@ -113,3 +114,48 @@ def test_bf16_tensor_core_kernels(dev):
             got = vk.residual_units_fused(bp, y)
             assert vk.launches == before + 1
             assert rel_rms(got, vk.residual_units_plain(bp, y)) <= 1e-3
+
+
+def test_bf16_upsampling_kernels(dev):
+    """K5 with bf16 weights (one persistent cooperative launch, one device
+    kernel a call after the first) on both stages, from fp32 and bf16 input, at the 0.6B
+    widths with T = 26 and 110 (the stream and generate windows) and at
+    CFG's (C = 96, Cic = 160: ragged 64-column tiles) with B = 2, T = 19;
+    the blocks' upsample (the 2-tap tensor-core conv with bf16 weights,
+    the fp32 GEMM with fp32 weights) against its plain version at both."""
+    for cfg, b, ts in ((TokenizerDecoderConfig(), 1, (26, 110)), (CFG, 2, (19,))):
+        p = random_vocoder_params(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        stages = p["upsample"]
+        sps = [upk.build_upsample_stage_params(
+            st, torch.bfloat16,
+            initial_conv=p["decoder"]["initial_conv"] if i == len(stages) - 1 else None)
+            for i, st in enumerate(stages)]
+        for t in ts:
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(b, t, cfg.latent_dim, generator=g, device=dev).to(dt)
+                for sp in sps:
+                    upk.upsample_stage_fused(sp, x)  # the first call makes the split-K counters
+                    before = upk.launches
+                    with torch.profiler.profile(
+                            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        got = upk.upsample_stage_fused(sp, x)
+                        torch.cuda.synchronize()
+                    assert upk.launches == before + 1
+                    kernels = [e.name for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA]
+                    assert len(kernels) == 1 and "persistent" in kernels[0], kernels
+                    assert got.dtype == dt
+                    assert rel_rms(got, upk.upsample_stage_plain(sp, x)) <= 1e-3
+                    x = got
+
+        dec = p["decoder"]
+        for i, rate in enumerate(cfg.upsample_rates):
+            for wdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-3)):
+                bp = vk.build_seanet_block_params(dec["blocks"][i], rate, wdt)
+                cin = bp["up_w"].shape[0] // 2
+                x = torch.randn(b, 4 * ts[-1], cin, generator=g, device=dev) * 0.5
+                before = vk.upsample_launches
+                got = vk.block_upsample(bp, x, rate=rate)
+                assert vk.upsample_launches == before + 1
+                assert rel_rms(got, vk.block_upsample_plain(bp, x, rate=rate)) <= tol
