@@ -19,10 +19,17 @@ non-zero):
                 and a frame make
   kernels     - K3, K4, K4a, K5, K6, K7 and the SEANet blocks' upsample
                 against their plain PyTorch versions at the 0.6B main path's
-                shapes, fp32 and bf16, with times and bounds (K7 at 4 and 6
-                bits on the mixed mode's
-                linears, and one 2-, 3- and 8-bit shape, each at M = 1 and
-                M = 300; K4a at T = 26 and 110, B = 1 and 2, also against K4
+                shapes, fp32 and bf16, with times and bounds (K3 at M = 1,
+                2, 64, 300 and the text projection's 3 and 114; K7 at 4 and
+                6 bits on the mixed mode's linears, and one 2-, 3- and 8-bit
+                shape, each at M = 1 and M = 300, and the 4-bit text
+                projection at 3 and 114; past their M0 (the tensor-core
+                tile) two calls bit-identical, one device kernel a call
+                (profiler), and a dense bf16 torch.matmul of the same shape
+                as a yardstick; the tile at every width and group size,
+                with and without biases, at ragged shapes; M0's sweep, GEMV
+                against tile at gate/up, fc1 and fc2 for M = 2..64; K4a at T = 26 and
+                110, B = 1 and 2, also against K4
                 on the same weights, and at T = 300, whose q/k/v do not fit
                 in shared memory); K4, K5 and K6 with bf16 weights (the
                 persistent launches and the tensor-core conv) at T = 26 and
@@ -46,7 +53,8 @@ non-zero):
                 0.6B model dir, Qwen3TTSPipeline in bf16, generate() and
                 generate_stream(); checks the audio and that K1, K2,
                 K3 (text projection), K4, K5, K6 and the blocks' upsample ran
-                (K2g's kernel not, its draws made inside K2); K3 timed at the
+                (K2g's kernel not, its draws made inside K2); generate.
+                prefill's ms (in every pipeline phase); K3 timed at the
                 text projection's own shapes; a decode chunk with no
                 host sync; K1/K2 against their plain versions teacher-forced
                 over the generated frames; the kernel vocoder against the
@@ -64,7 +72,8 @@ non-zero):
                 layout, written by write_prequantized_model_dir), in the
                 default configuration: K1, K2, K7 (text projection),
                 K4-K6 ran and K3 and K2g's kernel did not; a decode chunk with no host sync
-                (packed embedding gathers in the frame loop); K1/K2
+                (packed embedding gathers in the frame loop); K7 timed at
+                the text projection's own shapes; K1/K2
                 teacher-forced on the kernel trees built from packed weights; a
                 profile of the frame loop
   modes-pipeline - a 0.6B dir with the speaker and audio encoders at full
@@ -240,17 +249,7 @@ def time_ms(fn, iters: int) -> tuple[float, str]:
     if ms >= 0.05:
         return ms, "events"
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        return _events_ms(lambda: [graph.replay() for _ in range(iters)]) / iters, "graph"
+        return graph_ms(fn, iters), "graph"
     except RuntimeError:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -350,6 +349,20 @@ def phase_kernels(rec: Record) -> None:
     kp = ptk.build_pretransformer_params(dense["pre_transformer"], cfg, torch.bfloat16)
     mats = weight_numel(kp, ("wi", "wqkv", "wo", "wgu", "wd", "wout"))
     kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
+    # K3 and K7 past their M0 run the tensor-core tile, one device kernel a
+    # call with K split (fc1 at M = 114) or not (gate/up at M = 300)
+    for name, k, o, m, bits in (("fc1", 2048, 2048, 114, None), ("gate_up", 1024, 6144, 300, 4)):
+        x = randn(m, k).to(torch.bfloat16)
+        w, s, b = qmm_weights(gen, dev, bits, k, o)
+        if bits is None:
+            call = lambda: qm.int8_matmul_kernel(x, w, s, b)  # noqa: E731
+        else:
+            call = lambda: pm.packed_matmul_kernel(x, w, s, b, bits, 64)  # noqa: E731
+        for _ in range(3):  # the first calls load the kernel and size the counters
+            call()
+        one_kernel_per_call("int8_matmul" if bits is None else f"packed_matmul {bits}-bit",
+                            f"tile, {name} M={m} K={k} O={o}", call, time_ms(call, 20)[0],
+                            2 * m * k * o, expect="qt_qmm_tile_kernel")
     for b, t in ((1, 26), (1, 110), (2, 110)):
         x = randn(b, t, cfg.latent_dim).to(torch.bfloat16)
         attn = 2 * kp["wqkv"].shape[0] * cfg.num_attention_heads * cfg.head_dim * t * (t + 1)
@@ -377,51 +390,66 @@ def phase_kernels(rec: Record) -> None:
             x = upsample_phases(sp, x, f"stage{i} T={x.shape[1]}")
 
     # K3 at every linear shape of the 0.6B talker / code predictor
-    # (qkv, o, gate/up, down, codec_head, text fc1, fc2, cp lm_head)
+    # (qkv, o, gate/up, down, codec_head, text fc1, fc2, cp lm_head), and at
+    # the text projection's own rows (M = 3 and 114) on fc1 and fc2; past
+    # M0 the tile, whose two calls give the same bits. K3 and K7 are timed
+    # by CUDA-graph replay: at 0.01-0.06 ms a call their back-to-back event
+    # time reads the wrapper's host dispatch (0.03-0.17 ms)
     shapes = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024),
               (1024, 3072), (2048, 2048), (1024, 2048)]
     for k, o in shapes:
-        w8 = torch.randint(0, 256, (o, k), generator=gen, device=dev, dtype=torch.uint8)
-        s = torch.rand(o, k // 64, generator=gen, device=dev) * 1e-3
-        b = randn(o, k // 64, scale=0.02)
+        w8, s, b = qmm_weights(gen, dev, None, k, o)
+        rows = (1, 2, 3, 64, 114, 300) if k == 2048 else (1, 2, 64, 300)
         for dtype in ("float32", "bfloat16"):
-            for m in (1, 2, 64, 300):
+            for m in rows:
                 x = randn(m, k).to(getattr(torch, dtype))
                 got = qm.int8_matmul_kernel(x, w8, s, b)
                 ref = qm.int8_matmul_plain(x, w8, s, b)
-                it = 50 if m <= 2 else 10
+                it = 50 if m <= 3 else 10
                 nb = nbytes(x, w8, s, b, got)
                 rec.compare("int8_matmul", f"M={m} K={k} O={o}", dtype, got, ref,
-                            time_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b), it),
+                            (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b)), "graph"),
                             time_ms(lambda: qm.int8_matmul_plain(x, w8, s, b), it),
                             nb, {dtype: 2 * m * k * o})
+                if m > qm.M0:
+                    same_bits("int8_matmul", f"M={m} K={k} O={o} {dtype}", got,
+                              lambda: qm.int8_matmul_kernel(x, w8, s, b))
+                if dtype == "bfloat16" and m in (114, 300):
+                    dense_yardstick("int8_matmul", x, o, f"M={m} K={k} O={o}")
 
     # K7 at the mixed 4/6-bit mode's 0.6B linears (4-bit gate/up, o, down;
     # 6-bit qkv and codec head: the main path's, timed) and one 2-, 3- and
     # 8-bit shape (text fc1, cp lm_head, down), group 64; random bit
     # patterns are valid packed values at every width
+    # and the pre-quantized configuration's text projection (fc1 2048 ->
+    # 2048, fc2 2048 -> 1024 at 4 bits) at its own rows, M = 3 and 114
     packed = [(4, 1024, 6144, True), (4, 2048, 1024, True), (4, 3072, 1024, True),
-              (6, 1024, 4096, True), (6, 1024, 3072, True),
+              (6, 1024, 4096, True), (6, 1024, 3072, True), (4, 2048, 2048, True),
               (2, 2048, 2048, False), (3, 1024, 2048, False), (8, 3072, 1024, False)]
     for bits, k, o, main in packed:
-        wq = torch.randint(-2 ** 31, 2 ** 31, (o, k * bits // 32), generator=gen, device=dev,
-                           dtype=torch.int64).to(torch.int32)
-        s = torch.rand(o, k // 64, generator=gen, device=dev) * (2e-2 / 2 ** bits)
-        b = randn(o, k // 64, scale=0.01)
+        wq, s, b = qmm_weights(gen, dev, bits, k, o)
+        rows = (1, 3, 114, 300) if (bits, k) == (4, 2048) else (1, 300)
         for dtype in ("float32", "bfloat16"):
-            for m in (1, 300):
+            for m in rows:
                 x = randn(m, k).to(getattr(torch, dtype))
                 got = pm.packed_matmul_kernel(x, wq, s, b, bits, 64)
                 ref = pm.packed_matmul_plain(x, wq, s, b, bits, 64)
-                it = 50 if m == 1 else 10
+                it = 50 if m <= 3 else 10
                 err = rel_rms(got.float(), ref.float())
                 if not bool(torch.isfinite(got.float()).all()):
                     err = float("nan")
                 rec.add("packed_matmul", f"{bits}-bit M={m} K={k} O={o}", dtype, err,
                         float((got.float() - ref.float()).abs().max()), TOL[dtype],
-                        time_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64), it),
+                        (graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64)), "graph"),
                         time_ms(lambda: pm.packed_matmul_plain(x, wq, s, b, bits, 64), it),
                         nbytes(x, wq, s, b, got), {dtype: 2 * m * k * o}, timed=main)
+                if m > pm.M0:
+                    same_bits("packed_matmul", f"{bits}-bit M={m} K={k} O={o} {dtype}", got,
+                              lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
+                if dtype == "bfloat16" and m in (114, 300) and bits == 4:
+                    dense_yardstick("packed_matmul", x, o, f"{bits}-bit M={m} K={k} O={o}")
+    tile_widths(rec, gen, dev)
+    m0_sweep(gen, dev)
 
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -521,6 +549,163 @@ def phase_kernels(rec: Record) -> None:
     torch.cuda.synchronize()
 
 
+def qmm_weights(gen, dev, bits: int | None, k: int, o: int):
+    """Random K3 (bits None: uint8 [o, k]) or K7 (MLX words of `bits`)
+    weights, group 64, with fp32 scales and biases; random bit patterns are
+    valid packed values at every width."""
+    import torch
+
+    if bits is None:
+        w = torch.randint(0, 256, (o, k), generator=gen, device=dev, dtype=torch.uint8)
+        s = torch.rand(o, k // 64, generator=gen, device=dev) * 1e-3
+        return w, s, torch.randn(o, k // 64, generator=gen, device=dev) * 0.02
+    w = torch.randint(-2 ** 31, 2 ** 31, (o, k * bits // 32), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    s = torch.rand(o, k // 64, generator=gen, device=dev) * (2e-2 / 2 ** bits)
+    return w, s, torch.randn(o, k // 64, generator=gen, device=dev) * 0.01
+
+
+def same_bits(name: str, label: str, got, call) -> None:
+    """A second call gives the same bits (the tile's split-K sum is
+    fixed-order)."""
+    import torch
+
+    if not torch.equal(call(), got):
+        raise SystemExit(f"{name} {label}: two calls differ")
+
+
+def dense_yardstick(name: str, x, o: int, label: str) -> None:
+    """One dense bf16 torch.matmul of the same shape, beside the kernel's
+    time: a yardstick only (not the same function; no port path calls
+    it)."""
+    import torch
+
+    w = torch.randn(x.shape[1], o, device=x.device).to(torch.bfloat16)
+    ms = graph_ms(lambda: x @ w)
+    log(f"[kernels] yardstick, {name} {label}: one dense bf16 torch.matmul {ms:.4f} ms (graph, "
+        f"{2 * x.shape[0] * x.shape[1] * o / ms / 1e9:.1f} TFLOP/s)")
+
+
+def tile_widths(rec: Record, gen, dev) -> None:
+    """K3 and K7 past their M0 at every width the tile takes: K3, and K7
+    at 2, 3, 4, 6 and 8 bits, group sizes 32, 64 and 128, with and without
+    biases, at ragged shapes (M = 9 and 130 rows, O = 200 columns, K = 352
+    at group 32: half a K step past the last whole one), fp32 and bf16 x,
+    against their plain versions; every call is one launch and two calls
+    give the same bits."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    o, worst, n = 200, {}, 0
+    for m in (9, 130):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = []
+            x = torch.randn(m, 320, generator=gen, device=dev).to(dtype)
+            w8, s, b = qmm_weights(gen, dev, None, 320, o)
+            cases.append(("int8_matmul", "K=320", qm,
+                          lambda x=x, w8=w8, s=s, b=b: qm.int8_matmul_kernel(x, w8, s, b),
+                          lambda x=x, w8=w8, s=s, b=b: qm.int8_matmul_plain(x, w8, s, b)))
+            for bits in (2, 3, 4, 6, 8):
+                for gs in (32, 64, 128):
+                    k = 352 if gs == 32 else 384
+                    wq = torch.randint(-2 ** 31, 2 ** 31, (o, k * bits // 32), generator=gen,
+                                       device=dev, dtype=torch.int64).to(torch.int32)
+                    s = torch.rand(o, k // gs, generator=gen, device=dev) * 1e-2
+                    b = torch.randn(o, k // gs, generator=gen, device=dev) * 0.1
+                    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+                    for bb in (b, None):
+                        args = (x, wq, s, bb, bits, gs)
+                        cases.append(("packed_matmul", f"{bits}-bit gs={gs} K={k} biases="
+                                      f"{bb is not None}", pm,
+                                      lambda a=args: pm.packed_matmul_kernel(*a),
+                                      lambda a=args: pm.packed_matmul_plain(*a)))
+            for name, label, mod, kernel, plain in cases:
+                label = f"{label} M={m} {str(dtype)[6:]}"
+                before = mod.launches
+                got = kernel()
+                if mod.launches != before + 1 or m <= mod.M0:
+                    raise SystemExit(f"[kernels] tile {name} {label}: not one launch of the tile")
+                ref = plain()
+                err = rel_rms(got.float(), ref.float())
+                tol = TOL[str(dtype)[6:]]
+                if not (err <= tol and bool(torch.isfinite(got.float()).all())):
+                    raise SystemExit(f"[kernels] tile {name} {label}: rel RMS {err:.3e} "
+                                     f"(tol {tol:g})")
+                same_bits(name, label, got, kernel)
+                row = rec.rows[name]
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         float((got.float() - ref.float()).abs().max()))
+                key = (name, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), err)
+                n += 1
+    log(f"[kernels] the tile at every width past M0: {n} calls (K3; K7 at 2/3/4/6/8 bits, "
+        f"groups 32/64/128, with and without biases; M = 9 and 130, O = 200, K = 320-384), "
+        f"worst rel RMS " + ", ".join(f"{k[0]} {k[1]} {e:.3e}" for k, e in sorted(worst.items()))
+        + " (tol 1e-4 fp32, 2e-2 bf16); two calls bit-identical in each")
+
+
+def m0_sweep(gen, dev) -> None:
+    """M0's sweep: the GEMV and the tile for M = 2..64 at gate/up (1024 ->
+    6144) and the text projection's fc1 (2048 -> 2048) and fc2 (2048 ->
+    1024), bf16 x, K3 and K7 at 4 bits, device time (CUDA-graph replay).
+    The M0 it gives a kernel is the largest M at which the GEMV is faster
+    summed over fc1 and fc2, the text projection's shapes: the only calls
+    with 1 < M <= 8 on a pipeline path (decode runs M = 1, prefill M = 9);
+    logged beside each wrapper's M0."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    keep = qm.M0, pm.M0
+    total: dict = {}
+    try:
+        for name, k, o in (("gate/up", 1024, 6144), ("fc1", 2048, 2048), ("fc2", 2048, 1024)):
+            w8, s, b = qmm_weights(gen, dev, None, k, o)
+            wq, s4, b4 = qmm_weights(gen, dev, 4, k, o)
+            for m in (2, 3, 4, 8, 16, 32, 64):
+                x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+                t = {}
+                for path, m0 in (("gemv", 1 << 30), ("tile", 0)):
+                    qm.M0 = pm.M0 = m0
+                    t["K3", path] = graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b))
+                    t["K7", path] = graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s4, b4, 4, 64))
+                for key, v in t.items():
+                    if name != "gate/up":
+                        total[key + (m,)] = total.get(key + (m,), 0.0) + v
+                log(f"[kernels] M0 sweep, {name} M={m}: K3 GEMV {t['K3', 'gemv']:.4f} ms, tile "
+                    f"{t['K3', 'tile']:.4f}; K7 4-bit GEMV {t['K7', 'gemv']:.4f}, tile "
+                    f"{t['K7', 'tile']:.4f} (graph)")
+    finally:
+        qm.M0, pm.M0 = keep
+    swept = {kern: max([m for m in (2, 3, 4, 8, 16, 32, 64)
+                        if total[kern, "gemv", m] < total[kern, "tile", m]], default=1)
+             for kern in ("K3", "K7")}
+    log(f"[kernels] M0 sweep: the GEMV is faster summed over fc1 and fc2 up to M = "
+        f"{swept['K3']} (K3), {swept['K7']} (K7 4-bit); the wrappers' M0: K3 {qm.M0}, "
+        f"K7 {pm.M0}")
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """ms a call by replaying a CUDA graph of one call (device time)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _events_ms(lambda: [graph.replay() for _ in range(iters)]) / iters
+
+
 def upsample_ops(sp: dict, t: int) -> int:
     """2 x the multiply-adds of one K5 stage call on [1, t, C]: the up
     GEMM, the depthwise taps and the 2t-row pointwise GEMMs (and the
@@ -552,7 +737,8 @@ def upsample_phases(sp: dict, x, label: str):
     return out
 
 
-def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int) -> None:
+def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int,
+                        expect: str | None = None) -> None:
     """A call is one device kernel: torch.profiler over 4 calls sees 4
     device kernels of one name; its profiler device time beside its
     CUDA-event time (the gap is host dispatch), and the bf16 TFLOP/s it
@@ -577,6 +763,8 @@ def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int) 
         seen.append(len(kernels))
         if len(kernels) > 4 or len(set(kernels)) > 1:
             raise SystemExit(f"{name} is not one device kernel per call: {kernels}")
+        if expect and not all(expect in k for k in kernels):
+            raise SystemExit(f"{name} {label} did not launch {expect}: {kernels}")
         if len(kernels) == 4:
             break
     dev_ms = device_us(prof) / 1e3 / max(len(kernels), 1)
@@ -997,9 +1185,11 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
         launches = read_counts()
     finally:
         gen_mod.filter_valid_frames = filt
+    prefill = prefill_ms(pl, label, card)
     metrics = {"load_s": load_s, "generate_s": gen_s, "rtf": gen_s / dur,
                "stream_rtf": stream_s / (pos * spf / pl.sample_rate),
-               "first_audio_s": first, "resident_bytes": pl.model_resident_bytes()}
+               "first_audio_s": first, "resident_bytes": pl.model_resident_bytes(),
+               "prefill_ms": prefill}
     log(f"[{label}] load {load_s:.2f} s, generate {gen_s:.2f} s for {dur:.2f} s of audio, "
         f"RTF {metrics['rtf']:.3f}; generate_stream: {len(chunks)} chunks over {pos} frames, "
         f"first audio {first:.2f} s, RTF {metrics['stream_rtf']:.3f}; resident "
@@ -1008,36 +1198,70 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
     return pl, launches, metrics
 
 
-def text_projection_k3(pl, card: str) -> None:
-    """K3 at the shapes the prompt's text projection hands it on this
-    configuration (its only K3 launches): each shape's time beside its
-    bound, from the calls one prompt assembly makes."""
+def text_projection(pl, card: str, label: str, kernel: str) -> None:
+    """K3 (kernel "K3") or K7 ("K7") at the shapes the prompt's text
+    projection hands it on this configuration (K3's only launches in the
+    megakernel configuration, K7's in the pre-quantized one): each shape's
+    time beside its bound and its plain version's, from the calls one
+    prompt assembly makes."""
     import torch
 
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
     from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
+    mod, attr, plain = ((qm, "int8_matmul_kernel", qm.int8_matmul_plain) if kernel == "K3"
+                        else (pm, "packed_matmul_kernel", pm.packed_matmul_plain))
     calls = []
-    kernel = qm.int8_matmul_kernel
+    fn = getattr(mod, attr)
 
-    def recording(x, w8, s, b):
-        calls.append((x, w8, s, b))
-        return kernel(x, w8, s, b)
+    def recording(*args):
+        calls.append(args)
+        return fn(*args)
 
-    qm.int8_matmul_kernel = recording
+    setattr(mod, attr, recording)
     try:
         pl._assemble(TEXT, "aiden")
     finally:
-        qm.int8_matmul_kernel = kernel
+        setattr(mod, attr, fn)
     torch.cuda.synchronize()
     seen = {}
-    for x, w8, s, b in calls:
-        seen.setdefault((x.shape[0], w8.shape[1], w8.shape[0], str(x.dtype)[6:]), (x, w8, s, b))
-    for (m, k, o, dt), (x, w8, s, b) in seen.items():
-        n = sum(1 for c in calls if (c[0].shape[0], c[1].shape[1], c[1].shape[0]) == (m, k, o))
-        ms, how = time_ms(lambda: kernel(x, w8, s, b), 20)
-        b_ms, b_by = bound(nbytes(x, w8, s, b) + m * o * x.element_size(), {dt: 2 * m * k * o})
-        log(f"[pipeline] K3 in the text projection: M={m} K={k} O={o} {dt}, {n} launch(es) a "
-            f"prompt: {ms:.4f} ms ({how}) against a bound of {b_ms:.4f} ms ({b_by}) ({card})")
+    for args in calls:
+        x, w = args[0], args[1]
+        seen.setdefault((x.shape[0], x.shape[1], w.shape[0], str(x.dtype)[6:]), []).append(args)
+    for (m, k, o, dt), same in seen.items():
+        args = same[0]
+        ms = graph_ms(lambda: fn(*args))
+        ev = _events_ms(lambda: [fn(*args) for _ in range(20)]) / 20
+        p_ms, p_how = time_ms(lambda: plain(*args), 10)
+        nb = (nbytes(*(a for a in args if isinstance(a, torch.Tensor)))
+              + m * o * args[0].element_size())
+        b_ms, b_by = bound(nb, {dt: 2 * m * k * o})
+        log(f"[{label}] {kernel} in the text projection: M={m} K={k} O={o} {dt}, {len(same)} "
+            f"launch(es) a prompt ({'GEMV' if m <= mod.M0 else 'tile'}): {ms:.4f} ms (graph; "
+            f"{ev:.4f} by events with the host's dispatch) against a bound of {b_ms:.4f} ms "
+            f"({b_by}); plain {p_ms:.4f} ms ({p_how}) ({card})")
+
+
+def prefill_ms(pl, label: str, card: str) -> float:
+    """generate.prefill's wall time on this configuration (after the
+    prompt's assembly, each run ended by a device sync): the median of 7."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    pd = pl._assemble(TEXT, "aiden")
+    gen_mod.prefill(pl.params, pd, pl.config)
+    runs = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_mod.prefill(pl.params, pd, pl.config)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(runs))
+    log(f"[{label}] generate.prefill of the {pd.input_embeds.shape[1]}-row prompt: {med:.3f} ms "
+        f"(median of 7, {min(runs):.3f}-{max(runs):.3f}) ({card}, bf16)")
+    return med
 
 
 def no_sync_chunk(pl, label: str) -> None:
@@ -1498,7 +1722,7 @@ def main() -> int:
             card, d, "pipeline", None, need=megakernels + ("int8_matmul",) + vocoder,
             idle=sampler + ("packed_matmul",))
         no_sync_chunk(pl, "pipeline")
-        text_projection_k3(pl, card)
+        text_projection(pl, card, "pipeline", "K3")
         teacher_forced(pl, card)
         vocoder_check(pl)
         vocoder_windows(pl, card)
@@ -1543,6 +1767,7 @@ def main() -> int:
             card, d, "prequant-pipeline", None,
             need=megakernels + ("packed_matmul",) + vocoder, idle=sampler + ("int8_matmul",))
         no_sync_chunk(pl, "prequant-pipeline")
+        text_projection(pl, card, "prequant-pipeline", "K7")
         teacher_forced(pl, card, "prequant-pipeline")
         profile_frames(pl, "prequant-pipeline", card)
         del pl

@@ -1,60 +1,42 @@
 // K7: packed-bit group-affine matmul, y = x @ dequant(wq)^T with
 //   dequant(wq)[o, k] = scales[o, k / gs] * q[o, k] + biases[o, k / gs],
 // q the `bits`-bit value at bits [k * bits, (k + 1) * bits) of row o's
-// little-endian uint32 bitstream (MLX's layout, as checkpoints store it).
+// little-endian uint32 bitstream (MLX's layout, as checkpoints store it);
+// missing biases count as zero; sums in fp32, output in x's dtype.
 //
 // Replaces the TPU kernel qwen3_tts_tpu/ops/pallas/quant_matmul.py::_kernel
 // (called through quantized_matmul_pallas / quantized_matmul). That kernel
 // takes 2/4/8 bits on a lane-permuted copy of the weights; this one reads
 // the checkpoint's rows as they are, at 2, 3, 4, 6 and 8 bits, group sizes
-// 32, 64 and 128 (3- and 6-bit values cross word boundaries).
+// 32, 64 and 128 (3- and 6-bit values cross word boundaries), any M.
 //
-// What bounds it on the H100: at decode (M = 1) it is a GEMV that reads each
-// packed weight once for 2 FLOPs per value, so it is bound by device memory
-// bandwidth (3.35 TB/s): the bytes are bits / 16 of bf16's, plus the fp32
-// scales and biases (8 bytes per group). At prefill (M = a few hundred rows)
-// each 8-row slice re-reads the weights from L2 and the FMA rate bounds it.
-//
-// Design (simple first; as K3 in quant_matmul.cu): one warp per output
-// feature, eight features per block, up to eight activation rows per block
-// (grid.y walks M in steps of 8). A lane takes 32 consecutive values of the
-// row at a time: exactly `bits` words, word-aligned and inside one group (gs
-// is a multiple of 32), read with the widest aligned vector load (16 bytes
-// for 4 and 8 bits, 8 bytes for 2 and 6, 4 bytes for 3). The unpack is
-// unrolled with compile-time shifts per width; a value that crosses a word
-// boundary ORs in the high bits from the next word of the pair. Values are
-// dequantized in fp32 as q * s + b (as the Pallas kernel does), multiplied
-// with the activation rows (vector loads through L1) and summed in fp32; a
-// warp reduction gives each output, written in x's dtype. K must be a
-// multiple of 32 and of gs, and the weight rows 16-byte aligned.
+// One C entry, one launch a call, two designs chosen by M:
+// - M <= m0 (M0 = 8 in ops/cuda/packed_matmul.py; decode): a GEMV, bound by
+//   device memory bandwidth (3.35 TB/s; the bytes are bits / 16 of bf16's,
+//   plus 8 bytes of scale and bias a group). One warp per output feature,
+//   eight features per block, up to eight activation rows per block
+//   (grid.y walks M in steps of 8). A lane takes 32 consecutive values of
+//   the row at a time: exactly `bits` words, word-aligned and inside one
+//   group, read with the widest aligned vector load (16 bytes for 4 and 8
+//   bits, 8 for 2 and 6, 4 for 3), unpacked with compile-time shifts,
+//   dequantized in fp32 as q * s + b (as the Pallas kernel does) and
+//   multiplied with the activation rows; a warp reduction gives each output.
+// - M > m0 (prefill of the mixed configuration, the pre-quantized
+//   configuration's text projection): the bf16 tensor-core tile of
+//   qmm_tile.cuh, whose prologue unpacks the same words with the same
+//   shifts into bf16 (every q exact), the group affine in fp32 after each
+//   group's MMAs, split-K with a fixed-order fix-up. What bounds it at
+//   M = 114-300 rows is K3's tile's (quant_matmul.cu): the K steps of each
+//   block, not the bytes or the FLOPs.
+// K must be a multiple of 32 and of gs, x and the weight rows 16-byte
+// aligned.
 
 #include "gemm.cuh"
+#include "qmm_tile.cuh"
 
 namespace {
 
 constexpr int P_WARPS = 8, P_MT = 8, P_CHUNK = 32;
-
-// the `BITS` words of one 32-value chunk, read as wide as their alignment
-// allows (a chunk starts at a multiple of 4 * BITS bytes from the row start)
-template <int BITS>
-__device__ __forceinline__ void load_chunk(const uint32_t* __restrict__ p, uint32_t* w) {
-  if constexpr (BITS % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < BITS / 4; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      w[4 * i] = v.x, w[4 * i + 1] = v.y, w[4 * i + 2] = v.z, w[4 * i + 3] = v.w;
-    }
-  } else if constexpr (BITS % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < BITS / 2; ++i) {
-      const uint2 v = reinterpret_cast<const uint2*>(p)[i];
-      w[2 * i] = v.x, w[2 * i + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < BITS; ++i) w[i] = p[i];
-  }
-}
 
 // dot of 32 consecutive activations x[off .. off + 31] with w[0 .. 31]
 __device__ __forceinline__ float dot32(const void* __restrict__ x, long long off, int bf16,
@@ -100,7 +82,6 @@ __global__ void __launch_bounds__(P_WARPS * 32) qt_packed_matmul_kernel(
   const int mt = min(P_MT, M - m0);
   const int chunks = K / P_CHUNK, G = K / gs;
   const uint32_t* wrow = wq + (long long)o * chunks * BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
   float acc[P_MT];
 #pragma unroll
   for (int r = 0; r < P_MT; ++r) acc[r] = 0.f;
@@ -112,12 +93,7 @@ __global__ void __launch_bounds__(P_WARPS * 32) qt_packed_matmul_kernel(
     const float s = scales[gi], b = biases ? biases[gi] : 0.f;
     float w[P_CHUNK];
 #pragma unroll
-    for (int v = 0; v < P_CHUNK; ++v) {
-      const int bit = v * BITS, wi = bit >> 5, off = bit & 31;
-      uint32_t q = words[wi] >> off;
-      if (off + BITS > 32) q |= words[min(wi + 1, BITS - 1)] << (32 - off);
-      w[v] = (float)(q & MASK) * s + b;
-    }
+    for (int v = 0; v < P_CHUNK; ++v) w[v] = (float)qt_unpack_q<BITS>(words, v) * s + b;
 #pragma unroll
     for (int r = 0; r < P_MT; ++r)
       if (r < mt) acc[r] += dot32(x, (long long)(m0 + r) * K + c * P_CHUNK, x_bf16, w);
@@ -142,10 +118,23 @@ int launch(const void* x, int x_bf16, const void* wq, const float* scales,
 
 extern "C" int qt_packed_matmul(const void* x, int x_bf16, const void* wq, int bits,
                                 int group_size, const float* scales, const float* biases,
-                                void* y, int M, int O, int K, void* stream) {
+                                void* y, int M, int O, int K, int m0, int ks,
+                                float* part, int* cnt, void* stream) {
   if (M <= 0 || O <= 0) return 0;
   if (group_size % P_CHUNK != 0 || K % group_size != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (M > m0) {
+    const QtQmmArgs a{x, x_bf16, reinterpret_cast<const unsigned char*>(wq), scales, biases,
+                      group_size, y, M, O, K, ks, part, cnt};
+    switch (bits) {
+      case 2: return qt_qmm_tile<2>(a, s);
+      case 3: return qt_qmm_tile<3>(a, s);
+      case 4: return qt_qmm_tile<4>(a, s);
+      case 6: return qt_qmm_tile<6>(a, s);
+      case 8: return qt_qmm_tile<8>(a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (bits) {
     case 2: return launch<2>(x, x_bf16, wq, scales, biases, group_size, y, M, O, K, s);
     case 3: return launch<3>(x, x_bf16, wq, scales, biases, group_size, y, M, O, K, s);

@@ -1,28 +1,34 @@
-// K3: int8 group-affine matmul, y = x @ (scales * w8 + biases)^T.
+// K3: int8 group-affine matmul, y = x @ (scales * w8 + biases)^T, uint8
+// weights [O, K], fp32 scales / biases per row and group of 64, dequant and
+// sums in fp32, output in x's dtype.
 //
 // Replaces the TPU kernel qwen3_tts_tpu/ops/pallas/quant_matmul.py::
 // _kernel_int8 (called through quantized_matmul_int8_pallas / int8_matmul).
 //
-// What bounds it on the H100: at decode (M = 1-2 rows) it is a GEMV that
-// reads every weight byte once for ~2 FLOPs each, so it is bound by device
-// memory bandwidth (3.35 TB/s): int8 storage halves the bytes of bf16. At
-// prefill (M = prompt length, a few hundred rows) each 8-row slice of the
-// activations re-reads the weights from L2 and the FMA rate becomes the
-// bound.
-//
-// Design: one warp per output feature, eight features per block, and up to
-// eight activation rows per block (grid.y walks M in steps of 8), so a
-// decode GEMV (M = 1) launches O / 8 blocks and keeps enough 16-byte weight
-// loads in flight to stream the weights near the bandwidth roof. Each lane
-// reads 16 consecutive uint8 weights at a time (one 16-byte load, coalesced
-// across the warp along K), dequantizes them as s * q + b in fp32 with the
-// scale and bias of their group of 64 (as the Pallas kernel does; no bf16
-// dequant), multiplies them with the activation rows (read through L1) and
-// accumulates in fp32; a warp reduction gives each output. Weights stay in
-// their plain [out, in] layout (no lane permutation). K must be a multiple
-// of 64 (the group size) and the weight rows 16-byte aligned.
+// One C entry, one launch a call, two designs chosen by M:
+// - M <= m0 (M0 = 3 in ops/cuda/quant_matmul.py; decode): a GEMV, bound by
+//   device memory bandwidth (3.35 TB/s; each weight byte read once for ~2
+//   FLOPs, int8 storage halves the bytes of bf16). One warp per output
+//   feature, eight features per block, up to eight activation rows per
+//   block (grid.y walks M in steps of 8). Each lane reads 16 consecutive
+//   uint8 weights at a time (one 16-byte load, coalesced across the warp
+//   along K), dequantizes them as s * q + b in fp32 (as the Pallas kernel
+//   does), multiplies them with the activation rows and accumulates in
+//   fp32; a warp reduction gives each output.
+// - M > m0 (the text projection at M = prompt length, prefill): the bf16
+//   tensor-core tile of qmm_tile.cuh with BITS = 8 (uint8 rows are MLX's
+//   8-bit words): the integer weights exact in bf16, the group affine in
+//   fp32 after each group's MMAs, split-K with a fixed-order fix-up. At
+//   M = 114-300 rows its bound (bytes at 114, bf16 FLOPs at 300) is 1-4
+//   us; what holds it back on the H100 is each block's K step, 2-3 us in
+//   which the MMAs of its 32 x 32 warp tiles take about a third and the
+//   ring's barriers, the unpack, the fold and the loads the rest, plus a
+//   fixed ~11 us a block wave (scripts/torch_qmm_ablation.py, PERF.md).
+// K must be a multiple of 64 (the group size), x and the weight rows
+// 16-byte aligned.
 
 #include "gemm.cuh"
+#include "qmm_tile.cuh"
 
 namespace {
 
@@ -75,9 +81,15 @@ __global__ void __launch_bounds__(Q_WARPS * 32) qt_int8_matmul_kernel(
 
 extern "C" int qt_int8_matmul(const void* x, int x_bf16, const void* w8,
                               const float* scales, const float* biases, void* y,
-                              int M, int O, int K, void* stream) {
+                              int M, int O, int K, int m0, int ks, float* part,
+                              int* cnt, void* stream) {
   if (M <= 0 || O <= 0) return 0;
   if (K % Q_G != 0) return (int)cudaErrorInvalidValue;
+  if (M > m0) {
+    const QtQmmArgs a{x, x_bf16, reinterpret_cast<const unsigned char*>(w8), scales, biases, Q_G,
+                      y, M, O, K, ks, part, cnt};
+    return qt_qmm_tile<8>(a, (cudaStream_t)stream);
+  }
   dim3 grid((O + Q_WARPS - 1) / Q_WARPS, (M + Q_MT - 1) / Q_MT);
   qt_int8_matmul_kernel<<<grid, Q_WARPS * 32, 0, (cudaStream_t)stream>>>(
       x, x_bf16, reinterpret_cast<const uint8_t*>(w8), scales, biases, y, M, O, K);

@@ -6,7 +6,8 @@ the MLX row-major little-endian bitstream (uint32 [O, K * bits / 32]),
 fp32 scales / biases [O, K / gs] (missing biases count as zero), dequant as
 s * q + b and accumulation in fp32, output in x's dtype. The kernel takes
 bits 2, 3, 4, 6, 8 and group sizes 32, 64, 128 on the checkpoint's own rows:
-no lane-permuted copy, no cap on M.
+no lane-permuted copy, no cap on M. One launch a call: the GEMV at M <=
+M0 rows, the tensor-core tile of csrc/qmm_tile.cuh above.
 """
 
 from __future__ import annotations
@@ -14,10 +15,15 @@ from __future__ import annotations
 import torch
 
 from ..quant import dequantize_torch
-from . import _build
+from . import _build, qmm_tile
 
 BITS = (2, 3, 4, 6, 8)
 GROUP_SIZES = (32, 64, 128)
+# M <= M0 rows run the GEMV, more the tile: the largest M at which the GEMV
+# (fewer bytes than K3's, vector loads of x) is faster summed over the text
+# projection's fc1 and fc2, the only calls with 1 < M <= 8 on a pipeline
+# path (M0's sweep in chip_smoke.py's kernels phase, PERF.md)
+M0 = 8
 launches = 0  # kernel launches since the last reset
 
 
@@ -57,9 +63,11 @@ def packed_matmul_kernel(
     if wq.data_ptr() % 16 or x.data_ptr() % 16:
         raise ValueError("x and wq must be 16-byte aligned")
     y = torch.empty((m, o), dtype=x.dtype, device=x.device)
+    m0, ks, part, cnt = qmm_tile.launch_args(x, o, group_size, bits, M0)
     rc = _build.lib().qt_packed_matmul(
         x.data_ptr(), _build.is_bf16(x), wq.data_ptr(), bits, group_size,
-        scales.data_ptr(), _build.ptr(biases), y.data_ptr(), m, o, k, _build.stream(),
+        scales.data_ptr(), _build.ptr(biases), y.data_ptr(), m, o, k, m0, ks,
+        _build.ptr(part), _build.ptr(cnt), _build.stream(),
     )
     _build.check(rc, "qt_packed_matmul")
     launches += 1

@@ -45,18 +45,28 @@ def rel_rms(got, ref):
                  / (ref.double() ** 2).mean().sqrt())
 
 
-@pytest.mark.parametrize("m", [1, 2, 37])
+@pytest.mark.parametrize("m", [1, 2, 37, 130])
 def test_int8_matmul_kernel(dev, m):
+    """The GEMV (M <= qm.M0) and the tensor-core tile (37 and 130
+    rows: one and two row tiles, ragged O = 200 columns, split K) in fp32
+    (rel RMS 1e-4) and bf16 (2e-2); two calls give the same bits (the
+    split-K sum is fixed-order); a misaligned x is copied by the dispatch."""
     g = torch.Generator(device=dev).manual_seed(m)
     o, k = 200, 320
     w8 = torch.randint(0, 256, (o, k), generator=g, device=dev, dtype=torch.uint8)
     s = torch.rand(o, k // 64, generator=g, device=dev) * 1e-2
     b = torch.randn(o, k // 64, generator=g, device=dev) * 0.1
-    x = torch.randn(m, k, generator=g, device=dev)
-    before = qm.launches
-    got = qm.int8_matmul(x, {"w8": w8, "scales": s, "biases": b})
-    assert qm.launches == before + 1
-    assert rel_rms(got, qm.int8_matmul_plain(x, w8, s, b)) <= 1e-4
+    params = {"w8": w8, "scales": s, "biases": b}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        before = qm.launches
+        got = qm.int8_matmul(x, params)
+        assert qm.launches == before + 1
+        assert rel_rms(got.float(), qm.int8_matmul_plain(x, w8, s, b).float()) <= tol
+        assert torch.equal(qm.int8_matmul(x, params), got)
+        shifted = torch.empty(m * k + 1, dtype=dtype, device=dev)[1:].view(m, k)
+        shifted.copy_(x)
+        assert torch.equal(qm.int8_matmul(shifted, params), got)
 
 
 def test_vocoder_kernels(dev):

@@ -1,6 +1,7 @@
 """K7 (packed-bit matmul) against its plain PyTorch version on the card, at
 every width it takes (2, 3, 4, 6, 8 bits; group sizes 32, 64, 128; with and
-without biases), through the dispatch a linear uses (marked `cuda`; skipped
+without biases), at M up to and past pm.M0 (the GEMV and the
+tensor-core tile), through the dispatch a linear uses (marked `cuda`; skipped
 where there is no GPU, since a CUDA kernel has no CPU mode). Run on a GPU
 host with:
 
@@ -33,11 +34,15 @@ def rel_rms(got, ref):
                  / (ref.double() ** 2).mean().sqrt())
 
 
-@pytest.mark.parametrize("m", [1, 2, 37])
+@pytest.mark.parametrize("m", [1, 2, 37, 130])
 def test_packed_matmul_kernel(dev, m):
+    """The GEMV (M <= pm.M0) and the tensor-core tile (37 and 130
+    rows, ragged O = 200 columns, split K, K = 352 at group 32) at every
+    width; two calls give the same bits (the split-K sum is fixed-order)."""
     g = torch.Generator(device=dev).manual_seed(m)
-    o, k = 200, 384
+    o = 200
     for bits, gs in CASES:
+        k = 352 if gs == 32 else 384  # at 352, half of the last 64-column K step
         words = torch.randint(-2 ** 31, 2 ** 31, (o, k * bits // 32), generator=g, device=dev,
                               dtype=torch.int64).to(torch.int32)
         s = torch.rand(o, k // gs, generator=g, device=dev) * 1e-2
@@ -54,3 +59,4 @@ def test_packed_matmul_kernel(dev, m):
                 ref = pm.packed_matmul_plain(x, words, s, biases, bits, gs)
                 err = rel_rms(got.float(), ref.float())
                 assert err <= tol, (bits, gs, biases is None, dtype, err)
+                assert torch.equal(pm.quantized_matmul(x, entry), got)
