@@ -13,7 +13,9 @@
 // and 227 KB of shared memory per SM, so each pass reads the layer set again,
 // mostly from device memory. Reading it once plus the 31.5 MB of lm_heads
 // takes ~0.033 ms at 3.35 TB/s; re-reading it for every pass ~0.39 ms.
-// K2g is bound by its operations (a Philox block and two logs per logit).
+// K2g is bound by its operations: two logs per logit and one Philox4x32-10
+// block per four logits (a thread owns groups of four consecutive logits,
+// which share a Philox counter, so each block of bits is made once).
 //
 // Design: one persistent cooperative launch per frame, the phases of K1
 // (w8a8.cuh) with a grid barrier after each: per token pass t = 0..15 and
@@ -47,9 +49,9 @@ namespace {
 
 constexpr int SMP_NT = 256, CP_MAX_GROUPS = 32;
 
-__device__ __forceinline__ uint32_t qt_philox_word(unsigned long long seed, uint32_t row,
-                                                   uint32_t v) {
-  uint32_t c0 = v >> 2, c1 = row, c2 = 0u, c3 = 0u;
+// Philox4x32-10 of counter (c, row, 0, 0): the words of logits 4c .. 4c + 3.
+__device__ __forceinline__ uint4 qt_philox4(unsigned long long seed, uint32_t row, uint32_t c) {
+  uint32_t c0 = c, c1 = row, c2 = 0u, c3 = 0u;
   uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -62,37 +64,50 @@ __device__ __forceinline__ uint32_t qt_philox_word(unsigned long long seed, uint
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  const uint32_t w[4] = {c0, c1, c2, c3};
-  return w[v & 3];
+  return make_uint4(c0, c1, c2, c3);
 }
 
 // The Gumbel pick over one row of logits, for a whole block; every thread
 // gets the code. The logits may have been written earlier in the same
-// launch by other blocks: they are read through L2.
+// launch by other blocks: they are read through L2. A thread owns groups
+// of four consecutive logits v = 4c .. 4c + 3 (c = thread, thread + block,
+// ...): one Philox call gives their four words, one 16-byte load their
+// logits and one 4-byte load their seen marks; a group past V's last
+// multiple of 4, or a row not aligned for those loads, is read one value
+// at a time. A thread compares its scores in increasing v.
 __device__ int qt_gumbel_pick(const float* lg, int V, float temp, unsigned long long seed,
                               uint32_t row, const uint8_t* seen, float penalty) {
   __shared__ float best_v[32];
   __shared__ int best_i[32];
-  constexpr int PER = 4;  // logits a thread loads before it draws their noise
   float bv = -INFINITY;
   int bi = 0x7fffffff;
-  for (int v0 = threadIdx.x; v0 < V; v0 += PER * blockDim.x) {
-    float l[PER];
-    bool hit[PER];
+  const bool wide =
+      ((unsigned long long)lg & 15) == 0 && ((unsigned long long)seen & 3) == 0;
+  for (int c = threadIdx.x; 4 * c < V; c += blockDim.x) {
+    const int v0 = 4 * c;
+    float l[4];
+    uint32_t hit = 0;  // byte u nonzero: logit v0 + u was seen
+    if (wide && v0 + 4 <= V) {
+      const float4 q = __ldcg(reinterpret_cast<const float4*>(lg + v0));
+      l[0] = q.x, l[1] = q.y, l[2] = q.z, l[3] = q.w;
+      if (seen != nullptr) hit = __ldcg(reinterpret_cast<const unsigned int*>(seen + v0));
+    } else {
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int v = v0 + u * blockDim.x;
-      l[u] = v < V ? __ldcg(lg + v) : 0.f;
-      hit[u] = v < V && seen != nullptr && __ldcg(seen + v);
+      for (int u = 0; u < 4; ++u) {
+        l[u] = v0 + u < V ? __ldcg(lg + v0 + u) : 0.f;
+        if (seen != nullptr && v0 + u < V) hit |= (uint32_t)__ldcg(seen + v0 + u) << (8 * u);
+      }
     }
+    const uint4 q = temp > 0.f ? qt_philox4(seed, row, (uint32_t)c) : make_uint4(0, 0, 0, 0);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int v = v0 + u * blockDim.x;
+    for (int u = 0; u < 4; ++u) {
+      const int v = v0 + u;
       if (v >= V) break;
-      if (seen != nullptr) l[u] = l[u] / (hit[u] ? penalty : 1.f);
+      if (seen != nullptr) l[u] = l[u] / ((hit >> (8 * u)) & 0xffu ? penalty : 1.f);
       float score = l[u];
       if (temp > 0.f) {
-        const uint32_t u24 = qt_philox_word(seed, row, (uint32_t)v) >> 8;
+        const uint32_t u24 = w[u] >> 8;
         const float uf = ((float)u24 + 0.5f) * (1.f / 16777216.f);
         const float g = -logf(-logf(uf));
         score = __fadd_rn(l[u], __fmul_rn(temp, g));

@@ -25,9 +25,11 @@
 //   warp per (sequence, head, query) with an online softmax over key
 //   chunks of 32, so no T x T score matrix exists and no T cap applies.
 //
-// K4a, the same function over the per-head weight layout, shares the GEMM,
-// RMSNorm and launch pattern and adds a per-(sequence, head) attention
-// kernel; its note is further down.
+// K4a, the same function over the per-head weight layout: with bf16
+// weights the same persistent launch, its GEMM phases reading the per-head
+// arrays in place (qt_pt_w_col); with fp32 weights K4's GEMM, RMSNorm and
+// launch pattern around a per-(sequence, head) attention kernel. Its note
+// is further down.
 
 #include "gemm.cuh"
 #include "mma.cuh"
@@ -141,7 +143,9 @@ __global__ void qt_silu_mul_kernel(const float* __restrict__ gu, float* __restri
 // Replaces qwen3_tts_tpu/ops/pallas/pretransformer_kernel.py::_kernel
 // (wrapper pre_transformer_fused): the same function as K4 over the
 // per-head weight layout wq/wk/wv [nl, nh, H, hd], wo [nl, nh, hd, H] and
-// separate gate / up / down matrices. The wrapper
+// separate gate / up / down matrices. With bf16 weights it is K4's
+// persistent launch (qt_pt_persistent_kernel below, per-head addressing in
+// qt_pt_w_col). With fp32 weights the wrapper
 // (ops/cuda/pretransformer_kernel.py::pre_transformer_fused_kernel) runs
 // per layer: RMSNorm, qt_head_attention_kernel, the o-projection as one
 // GEMM over the heads' outputs laid side by side (its K loop walks the
@@ -159,7 +163,7 @@ __global__ void qt_silu_mul_kernel(const float* __restrict__ gu, float* __restri
 // warp per query, an online softmax over key chunks of 32 (one key per
 // lane), P.V accumulated per lane over HD / 32 dims. Bound on the H100: at
 // T = 110 a block does 21.6 MFLOP of fp32 FMA on one SM, 16 or 32 blocks in
-// all, so this first version is bound by its grid's width, not by bytes.
+// all, so this fp32 path is bound by its grid's width, not by bytes.
 // ---------------------------------------------------------------------------
 
 constexpr int QT_HA_THREADS = 256, QT_HA_RT = 32, QT_HA_BK = 32;
@@ -172,9 +176,9 @@ constexpr int qt_ha_base_bytes() {
 
 template <int HD>
 __global__ void __launch_bounds__(QT_HA_THREADS) qt_head_attention_kernel(
-    const float* __restrict__ xn, const void* __restrict__ wq, const void* __restrict__ wk,
-    const void* __restrict__ wv, int w_bf16, const float* __restrict__ inv_freq,
-    float* scratch, float* __restrict__ out, int T, int H, int nh, float scale) {
+    const float* __restrict__ xn, const float* __restrict__ wq, const float* __restrict__ wk,
+    const float* __restrict__ wv, const float* __restrict__ inv_freq, float* scratch,
+    float* __restrict__ out, int T, int H, int nh, float scale) {
   constexpr int NC = 3 * HD / 32;  // output columns per lane: q, k, v sections
   constexpr int HC = HD / 32;      // columns per lane in one section
   constexpr int LD = HD + 1;       // row stride of the q/k/v store (no bank conflicts)
@@ -205,8 +209,8 @@ __global__ void __launch_bounds__(QT_HA_THREADS) qt_head_attention_kernel(
       for (int idx = tid; idx < QT_HA_BK * 3 * HD; idx += QT_HA_THREADS) {
         const int kk = idx / (3 * HD), col = idx % (3 * HD);
         const int which = col / HD, d = col % HD;
-        const void* w = which == 0 ? wq : (which == 1 ? wk : wv);
-        ws[idx] = k0 + kk < H ? qt_ld(w, woff + (long long)(k0 + kk) * HD + d, w_bf16) : 0.f;
+        const float* w = which == 0 ? wq : (which == 1 ? wk : wv);
+        ws[idx] = k0 + kk < H ? w[woff + (long long)(k0 + kk) * HD + d] : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -301,8 +305,8 @@ __global__ void qt_silu_mul2_kernel(const float* __restrict__ g, const float* __
 }
 
 template <int HD>
-int qt_head_attention_launch(const float* xn, const void* wq, const void* wk, const void* wv,
-                             int w_bf16, const float* inv_freq, float* scratch, float* out,
+int qt_head_attention_launch(const float* xn, const float* wq, const float* wk,
+                             const float* wv, const float* inv_freq, float* scratch, float* out,
                              int B, int T, int H, int nh, float scale, cudaStream_t st) {
   const long long store = 3LL * T * (HD + 1) * sizeof(float);
   const long long base = qt_ha_base_bytes<HD>();
@@ -313,7 +317,7 @@ int qt_head_attention_launch(const float* xn, const void* wq, const void* wk, co
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   qt_head_attention_kernel<HD><<<dim3(B, nh), QT_HA_THREADS, bytes, st>>>(
-      xn, wq, wk, wv, w_bf16, inv_freq, in_smem ? nullptr : scratch, out, T, H, nh, scale);
+      xn, wq, wk, wv, inv_freq, in_smem ? nullptr : scratch, out, T, H, nh, scale);
   return (int)cudaGetLastError();
 }
 
@@ -360,22 +364,22 @@ extern "C" int qt_pt_silu_mul(const float* gu, float* y, long long rows, int I,
   return (int)cudaGetLastError();
 }
 
-// K4a's attention block for one layer: xn [B*T, H] fp32; wq/wk/wv the
-// layer's [nh, H, hd] blocks (fp32 or bf16); out [B*T, nh*hd] fp32.
+// K4a's attention block for one layer (fp32 weights): xn [B*T, H] fp32;
+// wq/wk/wv the layer's [nh, H, hd] blocks; out [B*T, nh*hd] fp32.
 // `scratch` ([B, nh, 3, T, hd + 1] fp32) is read only when T exceeds
 // qt_pt_head_store_rows(hd); it may be null otherwise.
-extern "C" int qt_pt_head_attention(const float* xn, const void* wq, const void* wk,
-                                    const void* wv, int w_bf16, const float* inv_freq,
-                                    float* scratch, float* out, int B, int T, int H, int nh,
-                                    int hd, float scale, void* stream) {
+extern "C" int qt_pt_head_attention(const float* xn, const float* wq, const float* wk,
+                                    const float* wv, const float* inv_freq, float* scratch,
+                                    float* out, int B, int T, int H, int nh, int hd,
+                                    float scale, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (hd == 64)
-    return qt_head_attention_launch<64>(xn, wq, wk, wv, w_bf16, inv_freq, scratch, out, B, T,
-                                        H, nh, scale, st);
+    return qt_head_attention_launch<64>(xn, wq, wk, wv, inv_freq, scratch, out, B, T, H, nh,
+                                        scale, st);
   if (hd == 128)
-    return qt_head_attention_launch<128>(xn, wq, wk, wv, w_bf16, inv_freq, scratch, out, B,
-                                         T, H, nh, scale, st);
+    return qt_head_attention_launch<128>(xn, wq, wk, wv, inv_freq, scratch, out, B, T, H, nh,
+                                         scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -427,6 +431,12 @@ extern "C" int qt_pt_silu_mul2(const float* g, const float* u, float* y, long lo
 // V), so no T cap applies. Data written inside the launch is read with
 // ld.global.cg (L2), weights by cp.async.
 //
+// K4a runs this kernel too (wk set): its q, k and v sections and its gate
+// and up halves come from their own tensors, read in place (qt_pt_w_col).
+// A 16-column item lies in one head (hd % 16 == 0), the items, K order and
+// roundings are K4's, so on the same weights K4a's output is K4's bit for
+// bit.
+//
 // Numerics, as the JAX kernel (_kernel_packed) at compute_dtype bf16: the
 // residual stream, every sum and the softmax stay fp32; each product's
 // operands are bf16 (the normed rows, q with its scale, k, v, the softmax
@@ -439,6 +449,9 @@ struct QtPtArgs {
   const void* x;  // [M, lat]
   int x_bf16;
   const __nv_bfloat16 *wi, *wqkv, *wo, *wgu, *wd, *wout;  // [in, out], layers stacked
+  // K4a's per-head layout where wk is set: wqkv is wq, and wq, wk, wv are
+  // [nl, nh, hid, hd] each; wgu is wg, and wg, wu are [nl, hid, inter] each
+  const __nv_bfloat16 *wk, *wv, *wu;
   const float *bi, *ln1, *lsa, *ln2, *lsm, *fnorm, *bout, *inv_freq;
   float* h;             // [M, hid] the residual stream
   float* qkv;           // [M, 3 D] q | k | v before RoPE
@@ -463,8 +476,9 @@ struct QtPtGemm {
   const void* a;
   int a_bf16;
   const float* ln;
-  const __nv_bfloat16* w;  // [K, N]
-  int K, N, pair, epi;
+  const __nv_bfloat16* w;  // [K, N]; or, where w2 is set, see qt_pt_w_col
+  const __nv_bfloat16 *w2, *w3;
+  int K, N, pair, epi, hd;
   const float* vec;  // bias (BIAS) or LayerScale (RESID)
   void* c;
   int c_bf16;
@@ -487,8 +501,13 @@ __device__ QtPtGemm qt_pt_gemm_desc(const QtPtArgs& p, int gi) {
   switch ((gi - 1) % 4) {
     case 0:
       d.a = p.h, d.ln = p.ln1 + (long long)l * p.hid;
-      d.w = p.wqkv + (long long)l * p.hid * 3 * D, d.K = p.hid, d.N = 3 * D;
-      d.epi = PT_E_STORE, d.c = p.qkv;
+      if (p.wk) {
+        const long long at = (long long)l * p.hid * D;
+        d.w = p.wqkv + at, d.w2 = p.wk + at, d.w3 = p.wv + at, d.hd = p.hd;
+      } else {
+        d.w = p.wqkv + (long long)l * p.hid * 3 * D;
+      }
+      d.K = p.hid, d.N = 3 * D, d.epi = PT_E_STORE, d.c = p.qkv;
       break;
     case 1:
       d.a = p.o, d.a_bf16 = 1, d.w = p.wo + (long long)l * D * p.hid, d.K = D, d.N = p.hid;
@@ -496,8 +515,12 @@ __device__ QtPtGemm qt_pt_gemm_desc(const QtPtArgs& p, int gi) {
       break;
     case 2:
       d.a = p.h, d.ln = p.ln2 + (long long)l * p.hid;
-      d.w = p.wgu + (long long)l * p.hid * 2 * p.inter, d.K = p.hid, d.N = 2 * p.inter;
-      d.pair = 1, d.epi = PT_E_SILU, d.c = p.mm;
+      if (p.wk) {
+        d.w = p.wgu + (long long)l * p.hid * p.inter, d.w2 = p.wu + (long long)l * p.hid * p.inter;
+      } else {
+        d.w = p.wgu + (long long)l * p.hid * 2 * p.inter;
+      }
+      d.K = p.hid, d.N = 2 * p.inter, d.pair = 1, d.epi = PT_E_SILU, d.c = p.mm;
       break;
     default:
       d.a = p.mm, d.a_bf16 = 1, d.w = p.wd + (long long)l * p.inter * p.hid, d.K = p.inter;
@@ -527,14 +550,37 @@ __device__ __forceinline__ int qt_pt_col(const QtPtGemm& d, int nt, int j) {
   return nt * 16 + j;
 }
 
-// Column item nt's weight slice [K][16] into `buf` (swizzled: qt_b16_at).
-__device__ void qt_pt_fetch_w(const QtPtGemm& d, int nt, __nv_bfloat16* buf) {
-  for (int idx = threadIdx.x; idx < 2 * d.K; idx += PK_NT) {
-    const int k = idx >> 1, half = idx & 1;
-    const int col = qt_pt_col(d, nt, half * 8);
-    const bool ok = col < d.N;  // N % 8 == 0: a group is whole or absent
-    qt_cp16(buf + qt_b16_at(k, half), ok ? d.w + (long long)k * d.N + col : d.w, ok ? 16 : 0);
+// Where output column col of a phase (one that starts a group of 8) finds
+// its weights: row k at the result + k * (*ld), the group's 8 values side by
+// side. K4's [K, N] matrix; or K4a's per-head tensors: the q, k and v
+// sections (N = 3 D) from w, w2 and w3, column c of a section at
+// (c / hd) * K * hd + k * hd + c % hd of [nh, K, hd]; the gate and up
+// halves (pair) from w and w2, [K, N / 2] each.
+__device__ __forceinline__ const __nv_bfloat16* qt_pt_w_col(const QtPtGemm& d, int col,
+                                                           long long* ld) {
+  if (!d.w2) {
+    *ld = d.N;
+    return d.w + col;
   }
+  if (d.pair) {
+    const int I = d.N / 2;
+    *ld = I;
+    return col < I ? d.w + col : d.w2 + (col - I);
+  }
+  const int D = d.N / 3, s = col / D, c = col % D;
+  *ld = d.hd;
+  return (s == 0 ? d.w : s == 1 ? d.w2 : d.w3) + (long long)(c / d.hd) * d.K * d.hd + c % d.hd;
+}
+
+// Column item nt's weight slice [K][16] into `buf` (swizzled: qt_b16_at):
+// a thread copies rows of one group of 8 (PK_NT is even).
+__device__ void qt_pt_fetch_w(const QtPtGemm& d, int nt, __nv_bfloat16* buf) {
+  const int half = threadIdx.x & 1, col = qt_pt_col(d, nt, half * 8);
+  const bool ok = col < d.N;  // N % 8 == 0: a group is whole or absent
+  long long ld = 0;
+  const __nv_bfloat16* src = ok ? qt_pt_w_col(d, col, &ld) : d.w;
+  for (int k = threadIdx.x >> 1; k < d.K; k += PK_NT / 2)
+    qt_cp16(buf + qt_b16_at(k, half), src + k * ld, ok ? 16 : 0);
   qt_cp_commit();
 }
 

@@ -111,7 +111,7 @@ _SIGNATURES = {
     "qt_pt_rope": [_P, _P, _I, _I, _I, _I, _P],
     "qt_pt_attention": [_P, _P, _I, _I, _I, _I, _F, _P],
     "qt_pt_silu_mul": [_P, _P, _LL, _I, _P],
-    "qt_pt_head_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "qt_pt_head_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_pt_head_store_rows": [_I],
     "qt_pt_silu_mul2": [_P, _P, _P, _LL, _P],
     "qt_pt_persistent": [_P, _I, _I, _P],

@@ -12,7 +12,9 @@ harness draws with is the one the frame ships:
 
 `row` is the draw (the group index inside a frame). The plain version
 computes the same bits with int64 tensor arithmetic, so kernel and plain
-draw the same codes from the same seed.
+draw the same codes from the same seed. The kernel makes the four words of
+a counter in one Philox call, for the four logits 4c .. 4c + 3 that one
+thread owns; philox4 and gumbel_pick_grouped mirror that order on the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +59,50 @@ def philox_words(seed: torch.Tensor, rows: int, vocab: int) -> torch.Tensor:
         k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
     words = torch.stack([c0, c1, c2, c3], dim=-1)
     return words.gather(-1, (v & 3)[None, :, None].expand(rows, vocab, 1))[..., 0]
+
+
+def philox4(seed: int, c0: int, c1: int) -> tuple[int, int, int, int]:
+    """One Philox4x32-10 call in Python integers: the four words of counter
+    (c0, c1, 0, 0) under the 64-bit key `seed` (qt_philox4)."""
+    k0, k1 = seed & _MASK, (seed >> 32) & _MASK
+    c2 = c3 = 0
+    for _ in range(10):
+        p0, p1 = _M0 * c0, _M1 * c2
+        c0, c1, c2, c3 = (p1 >> 32) ^ c1 ^ k0, p1 & _MASK, (p0 >> 32) ^ c3 ^ k1, p0 & _MASK
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def gumbel_pick_grouped(lg: torch.Tensor, seed: int, temperature: float, row: int, *,
+                        threads: int = 256, seen: torch.Tensor | None = None,
+                        penalty: float = 1.0) -> int:
+    """CPU mirror of qt_gumbel_pick's order for one draw from lg [V]: thread
+    i owns the groups c = i, i + threads, ... of logits 4c .. 4c + 3, takes
+    their four words from one philox4 call and keeps its best score,
+    compared in increasing v; the threads' bests then meet, the first
+    index winning a tie. Seen logits are divided by `penalty` first."""
+    lg = lg.float().cpu()
+    v = lg.shape[0]
+    groups = -(-v // 4)
+    if seen is not None:
+        lg = lg / torch.where(seen.cpu().bool(), penalty, 1.0)
+    score = lg
+    if temperature > 0:
+        words = torch.tensor([philox4(seed, c, row) for c in range(groups)],
+                             dtype=torch.int64).reshape(-1)[:v]
+        u = ((words >> 8).float() + 0.5) * (1.0 / 16777216.0)
+        score = lg + temperature * -torch.log(-torch.log(u))
+    score = score.tolist()
+    best = []  # (score, index) of each thread
+    for i in range(threads):
+        bv, bi = float("-inf"), None
+        for c in range(i, groups, threads):
+            for j in range(4 * c, min(4 * c + 4, v)):
+                if bi is None or score[j] > bv:
+                    bv, bi = score[j], j
+        if bi is not None:
+            best.append((bv, bi))
+    return min(best, key=lambda b: (-b[0], b[1]))[1]
 
 
 def gumbel_noise(seed: torch.Tensor, rows: int, vocab: int) -> torch.Tensor:

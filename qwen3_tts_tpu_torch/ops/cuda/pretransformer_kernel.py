@@ -7,10 +7,11 @@ pre_transformer_packed, K4a of pre_transformer_fused: x [B, T, latent] ->
 with LayerScale -> RMSNorm -> SwiGLU with LayerScale, the final norm and
 output_proj. K4 reads fused q/k/v and gate/up weights; K4a the per-head
 layout of build_pretransformer_fused_params (the JAX package's arrays).
-With bf16 weights (the pipeline's) K4 is one persistent cooperative launch
-on the tensor cores (bf16 operands, fp32 sums and residual stream, as the
-JAX kernel at compute_dtype bf16); with fp32 weights it is the exact fp32
-launch sequence, as is K4a for either dtype.
+With bf16 weights (the pipeline's) K4 and K4a are each one persistent
+cooperative launch of the same kernel on the tensor cores (bf16 operands,
+fp32 sums and residual stream, as the JAX kernel at compute_dtype bf16),
+K4a reading its per-head arrays in place; with fp32 weights each is an
+exact fp32 launch sequence.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from . import _build, persistent
 from .persistent import block_items  # noqa: F401  (K4's dealing, as K5's)
 
 launches = 0  # K4 calls (kernel launches or sequences) since the last reset
-fused_launches = 0  # K4a kernel-sequence launches since the last reset
+fused_launches = 0  # K4a calls (kernel launches or sequences) since the last reset
 
 # The persistent bf16 K4 (csrc/pretransformer.cu, qt_pt_persistent_kernel)
 PT_WARPS = persistent.PK_NT // 32
@@ -37,7 +38,8 @@ class PtArgs(ctypes.Structure):
     """Mirror of QtPtArgs in csrc/pretransformer.cu."""
 
     _fields_ = _build.struct_fields(
-        "x:p x_bf16:i wi:p wqkv:p wo:p wgu:p wd:p wout:p bi:p ln1:p lsa:p ln2:p lsm:p "
+        "x:p x_bf16:i wi:p wqkv:p wo:p wgu:p wd:p wout:p wk:p wv:p wu:p bi:p ln1:p lsa:p "
+        "ln2:p lsm:p "
         "fnorm:p bout:p inv_freq:p h:p qkv:p o:p mm:p out:p out_bf16:i B:i T:i lat:i hid:i "
         "nh:i hd:i inter:i nl:i eps:f scale:f wbuf:i work:i area:i kc:i")
 
@@ -50,15 +52,42 @@ def persistent_gemms(lat: int, hid: int, d: int, inter: int, nl: int):
     return [(lat, hid, False)] + layer * nl + [(hid, lat, False)]
 
 
+def persistent_weights(nl: int, heads: bool) -> list[tuple[str, ...]]:
+    """The weight tensors each GEMM phase of persistent_gemms reads: K4's
+    fused q/k/v and gate/up matrices, or (heads) K4a's per-head tensors."""
+    layer = [("wq", "wk", "wv") if heads else ("wqkv",), ("wo",),
+             ("wg", "wu") if heads else ("wgu",), ("wd",)]
+    return [("wi",)] + layer * nl + [("wout",)]
+
+
+def weight_at(names: tuple[str, ...], k: int, col: int, kdim: int, n: int,
+              hd: int) -> tuple[str, int]:
+    """Mirror of qt_pt_w_col: (tensor, element offset in the phase's layer
+    slice of it) of the weight at row k, GEMM column col of a phase of
+    depth kdim and width n that reads `names` (persistent_weights). One
+    [kdim, n] matrix; or q, k, v sections of d = n / 3 columns, column c of
+    a section at (c // hd) * kdim * hd + k * hd + c % hd of [nh, kdim, hd];
+    or gate and up halves, [kdim, n / 2] each."""
+    if len(names) == 1:
+        return names[0], k * n + col
+    if len(names) == 2:
+        half = n // 2
+        return names[col // half], k * half + col % half
+    s, c = divmod(col, n // 3)
+    return names[s], (c // hd) * kdim * hd + k * hd + c % hd
+
+
 def column_items(n: int, paired: bool) -> int:
     return n // 16 if paired else -(-n // 16)
 
 
-def item_columns(n: int, paired: bool, nt: int) -> list[int]:
+def item_columns(n: int, paired: bool, nt: int, weights: bool = False) -> list[int]:
     """Output columns of column item nt (qt_pt_col), those past n dropped;
-    a paired item gives the mm columns it writes."""
+    a paired item gives the mm columns it writes, or with `weights` the
+    GEMM columns whose weights it reads (8 gate, then the same 8 up)."""
     if paired:
-        return [nt * 8 + j for j in range(8)]
+        cols = [nt * 8 + j for j in range(8)]
+        return cols + [n // 2 + c for c in cols] if weights else cols
     return [c for c in range(nt * 16, nt * 16 + 16) if c < n]
 
 
@@ -77,19 +106,22 @@ def attention_items(b: int, t: int, nh: int) -> int:
     return b * nh * -(-t // PT_QROWS)
 
 
-def persistent_layout(lat: int, hid: int, d: int, hd: int,
-                      inter: int) -> tuple[int, int, int, int, int]:
+def persistent_layout(lat: int, hid: int, d: int, hd: int, inter: int,
+                      heads: bool = False) -> tuple[int, int, int, int, int]:
     """(dynamic shared memory, bytes of one weight buffer, offset and bytes
     of the work area, keys staged per chunk): two [kmax, 16] bf16 weight
     slices, then one area that holds an item's 64 bf16 input rows of the
     greatest depth and 128 of the least (item_rows), later its
     partial sums (16 warps x 16 x 16 fp32), or attention's PT_QROWS query
     rows and kc key and value rows (fp32, hd + 1 a row). Raises where a
-    width does not fit the kernel."""
+    width does not fit the kernel; K4a's per-head layout (`heads`) also
+    needs hd % 16 == 0, so that no 16-column item straddles two heads."""
     kmax = max(lat, hid, d, inter)
     if any(k % 16 for k in (lat, hid, d, inter)) or hid > 1024 or hd % 2 or hd > 128:
         raise ValueError(f"persistent K4: widths {lat, hid, d, inter} must be multiples of 16, "
                          f"hidden <= 1024, head_dim {hd} even and <= 128")
+    if heads and hd % 16:
+        raise ValueError(f"persistent K4a: head_dim {hd} must be a multiple of 16")
     wbuf = kmax * 16 * 2
     kmin = min(lat, hid, d, inter)
     area = max(64 * (kmax + 8) * 2, 128 * (kmin + 8) * 2, PT_WARPS * 256 * 4,
@@ -102,8 +134,9 @@ def persistent_layout(lat: int, hid: int, d: int, hd: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(device: int, lat: int, hid: int, d: int, hd: int, inter: int) -> tuple[int, ...]:
-    smem, wbuf, work, area, kc = persistent_layout(lat, hid, d, hd, inter)
+def _plan(device: int, lat: int, hid: int, d: int, hd: int, inter: int,
+          heads: bool) -> tuple[int, ...]:
+    smem, wbuf, work, area, kc = persistent_layout(lat, hid, d, hd, inter, heads)
     return persistent._grid("qt_pt_persistent_grid", device, smem), smem, wbuf, work, area, kc
 
 
@@ -209,27 +242,38 @@ def pre_transformer_plain(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
 
 def _pre_transformer_persistent(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
                                 eps: float) -> torch.Tensor:
-    """bf16 weights: one cooperative launch of qt_pt_persistent_kernel."""
+    """bf16 weights: one cooperative launch of qt_pt_persistent_kernel, over
+    K4's fused layout or K4a's per-head one ("wq" in kp), read in place."""
     b, t, lat = x.shape
-    nl, hid, _ = kp["wqkv"].shape
+    heads = "wq" in kp
+    nl, hid = kp["ln1"].shape[0], kp["wi"].shape[1]
     d, inter = nh * hd, kp["wd"].shape[1]
-    for name, shape in (("wi", (lat, hid)), ("wqkv", (nl, hid, 3 * d)), ("wo", (nl, d, hid)),
-                        ("wgu", (nl, hid, 2 * inter)), ("wd", (nl, inter, hid)),
+    if heads:
+        mats = tuple((n, (nl, nh, hid, hd)) for n in ("wq", "wk", "wv")) + (
+            ("wo", (nl, nh, hd, hid)), ("wg", (nl, hid, inter)), ("wu", (nl, hid, inter)))
+    else:
+        mats = (("wqkv", (nl, hid, 3 * d)), ("wo", (nl, d, hid)), ("wgu", (nl, hid, 2 * inter)))
+    for name, shape in (("wi", (lat, hid)), *mats, ("wd", (nl, inter, hid)),
                         ("wout", (hid, lat))):
         _build.require(kp[name], name, dtype=torch.bfloat16, shape=shape)
     for name, n in (("bi", hid), ("fnorm", hid), ("bout", lat)):
-        _build.require(kp[name], name, dtype=torch.float32, shape=(n,))
+        _build.require(kp[name], name, dtype=torch.float32, shape=(1, n) if heads else (n,))
     if x.data_ptr() % 16:  # rows are read 16 bytes at a time
         x = x.clone()
-    grid, smem, wbuf, work, area, kc = _plan(persistent._index(x.device), lat, hid, d, hd, inter)
+    grid, smem, wbuf, work, area, kc = _plan(persistent._index(x.device), lat, hid, d, hd, inter,
+                                             heads)
     rows = b * t
     h = torch.empty((rows, hid), dtype=torch.float32, device=x.device)
     qkv = torch.empty((rows, 3 * d), dtype=torch.float32, device=x.device)
     o = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
     mm = torch.empty((rows, inter), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((rows, lat), dtype=x.dtype, device=x.device)
-    w = {k: kp[k].data_ptr() for k in ("wi", "wqkv", "wo", "wgu", "wd", "wout", "bi", "ln1",
-                                       "lsa", "ln2", "lsm", "fnorm", "bout", "inv_freq")}
+    names = ["wi", "wo", "wd", "wout", "bi", "ln1", "lsa", "ln2", "lsm", "fnorm", "bout",
+             "inv_freq"]
+    names += ["wq", "wk", "wv", "wg", "wu"] if heads else ["wqkv", "wgu"]
+    w = {k: kp[k].data_ptr() for k in names}
+    if heads:  # K4a: wqkv is wq and wgu is wg (QtPtArgs)
+        w["wqkv"], w["wgu"] = w.pop("wq"), w.pop("wg")
     args = PtArgs(x=x.data_ptr(), x_bf16=_build.is_bf16(x), **w, h=h.data_ptr(),
                   qkv=qkv.data_ptr(), o=o.data_ptr(), mm=mm.data_ptr(), out=out.data_ptr(),
                   out_bf16=_build.is_bf16(out), B=b, T=t, lat=lat, hid=hid, nh=nh, hd=hd,
@@ -366,46 +410,66 @@ def build_pretransformer_fused_params(pt: dict, cfg, dtype=torch.bfloat16) -> di
 def pre_transformer_fused_plain(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
                                 eps: float) -> torch.Tensor:
     """Plain PyTorch version (fp32 arithmetic), head by head as the TPU
-    kernel computes it, rotate-half as the product with rotm."""
+    kernel computes it, rotate-half as the product with rotm. With bf16
+    weights it rounds where pre_transformer_plain does (K4's rounding
+    points, which the persistent kernel shares): every product's operands
+    to bf16, rotate-half from bf16 q / k, and q carrying the 1/sqrt(hd)
+    scale before its rounding."""
     b, t, _ = x.shape
     nl = kp["wq"].shape[0]
-    h = x.float() @ kp["wi"].float() + kp["bi"]
+    rounds = kp["wq"].dtype == torch.bfloat16
+
+    def op(z):
+        return z.bfloat16().float() if rounds else z
+
+    h = op(x.float()) @ kp["wi"].float() + kp["bi"]
     ang = torch.arange(t, dtype=torch.float32, device=x.device)[:, None] * kp["inv_freq"]
     cos = torch.cat([ang.cos(), ang.cos()], -1)
     sin = torch.cat([ang.sin(), ang.sin()], -1)
     causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
     rotm = kp["rotm"].float()
+    scale = 1.0 / hd ** 0.5
     for l in range(nl):
-        xin = _rms(h, kp["ln1"][l], eps)
+        xin = op(_rms(h, kp["ln1"][l], eps))
         acc = torch.zeros_like(h)
         for j in range(nh):
             qh = xin @ kp["wq"][l, j].float()  # [b, t, hd]
             kh = xin @ kp["wk"][l, j].float()
-            vh = xin @ kp["wv"][l, j].float()
-            qh = qh * cos + (qh @ rotm) * sin
-            kh = kh * cos + (kh @ rotm) * sin
-            s = (qh @ kh.transpose(-1, -2)) * (1.0 / hd ** 0.5)
-            p = torch.softmax(s.masked_fill(~causal, -1e30), dim=-1)
-            acc = acc + (p @ vh) @ kp["wo"][l, j].float()
+            vh = op(xin @ kp["wv"][l, j].float())
+            qh = qh * cos + (op(qh) @ rotm) * sin
+            kh = kh * cos + (op(kh) @ rotm) * sin
+            if rounds:
+                s = op(qh * scale) @ op(kh).transpose(-1, -2)
+            else:
+                s = (qh @ kh.transpose(-1, -2)) * scale
+            p = op(torch.softmax(s.masked_fill(~causal, -1e30), dim=-1))
+            acc = acc + op(p @ vh) @ kp["wo"][l, j].float()
         h = h + kp["lsa"][l] * acc
-        x2 = _rms(h, kp["ln2"][l], eps)
-        m = torch.nn.functional.silu(x2 @ kp["wg"][l].float()) * (x2 @ kp["wu"][l].float())
+        x2 = op(_rms(h, kp["ln2"][l], eps))
+        m = op(torch.nn.functional.silu(x2 @ kp["wg"][l].float()) * (x2 @ kp["wu"][l].float()))
         h = h + kp["lsm"][l] * (m @ kp["wd"][l].float())
-    out = _rms(h, kp["fnorm"], eps) @ kp["wout"].float() + kp["bout"]
+    out = op(_rms(h, kp["fnorm"], eps)) @ kp["wout"].float() + kp["bout"]
     return out.to(x.dtype)
 
 
 def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
                                  eps: float) -> torch.Tensor:
-    """Launch K4a's kernel sequence on a CUDA tensor x [B, T, latent]."""
+    """Run K4a on a CUDA tensor x [B, T, latent]. bf16 weights take K4's
+    persistent tensor-core kernel (one launch), its GEMM phases reading
+    the per-head arrays in place (hd % 16 == 0); it rounds where K4 does,
+    q carrying the 1/sqrt(hd) scale before its bf16 rounding, where JAX's
+    K4a scales the fp32 scores after the product: the two agree exactly
+    where 1/sqrt(hd) is a power of two (hd = 16, 64) and differ by one bf16
+    rounding of q at hd = 128. fp32 weights take the exact fp32 launch
+    sequence around qt_head_attention_kernel (hd 64 or 128)."""
     global fused_launches
     b, t, lat = x.shape
     nl, nh_w, hid, hd_w = kp["wq"].shape
     inter = kp["wg"].shape[2]
-    if (nh_w, hd_w) != (nh, hd) or hd not in (64, 128):
-        raise ValueError(f"K4a: nh={nh}, hd={hd} do not fit wq {tuple(kp['wq'].shape)} "
-                         "(hd 64 or 128)")
+    if (nh_w, hd_w) != (nh, hd):
+        raise ValueError(f"K4a: nh={nh}, hd={hd} do not fit wq {tuple(kp['wq'].shape)}")
     _build.require(x, "x", dtype=(torch.float32, torch.bfloat16))
+    _build.require(kp["wq"], "wq", dtype=(torch.float32, torch.bfloat16))
     wdt = kp["wq"].dtype
     for name, shape in (("wk", kp["wq"].shape), ("wv", kp["wq"].shape),
                         ("wo", (nl, nh, hd, hid)), ("wg", (nl, hid, inter)),
@@ -414,6 +478,12 @@ def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
     for name in ("ln1", "lsa", "ln2", "lsm"):
         _build.require(kp[name], name, dtype=torch.float32, shape=(nl, 1, hid))
     _build.require(kp["inv_freq"], "inv_freq", dtype=torch.float32, shape=(hd // 2,))
+    if wdt == torch.bfloat16:
+        out = _pre_transformer_persistent(kp, x, nh=nh, hd=hd, eps=eps)
+        fused_launches += 1
+        return out
+    if hd not in (64, 128):
+        raise ValueError(f"K4a with fp32 weights: hd={hd} (hd 64 or 128)")
     rows = b * t
     lib, st = _build.lib(), _build.stream()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -427,7 +497,6 @@ def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
     scratch = None  # q/k/v of every (row, head) when they do not fit in shared memory
     if t > lib.qt_pt_head_store_rows(hd):
         scratch = torch.empty((b, nh, 3, t, hd + 1), **f32)
-    w_bf16 = _build.is_bf16(kp["wq"])
     gm = "qt_pt_gemm"
 
     def rms(src, w):
@@ -439,7 +508,7 @@ def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
         rms(h, kp["ln1"][l])
         _build.check(lib.qt_pt_head_attention(
             xn.data_ptr(), kp["wq"][l].data_ptr(), kp["wk"][l].data_ptr(),
-            kp["wv"][l].data_ptr(), w_bf16, kp["inv_freq"].data_ptr(), _build.ptr(scratch),
+            kp["wv"][l].data_ptr(), kp["inv_freq"].data_ptr(), _build.ptr(scratch),
             o.data_ptr(), b, t, hid, nh, hd, 1.0 / hd ** 0.5, st), "qt_pt_head_attention")
         # o-projection: heads side by side, summed over in order by the GEMM's K loop
         _build.gemm(gm, o, kp["wo"][l].reshape(nh * hd, hid), h, res=h,

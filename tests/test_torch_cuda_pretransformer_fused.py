@@ -6,9 +6,14 @@ CPU mode). Run on a GPU host with:
     python -m pytest tests/test_torch_cuda_pretransformer_fused.py -q
 
 Shapes: head_dim 64 and 128; T = 1, 26, 110, and 300 (above the rows whose
-q/k/v fit in shared memory, so the global-scratch store runs); fp32 and
-bf16 weights. Tolerance: rel RMS <= 1e-4 in fp32 (sums in another order),
-2e-2 with bf16 weights and a bf16 output."""
+q/k/v fit in shared memory, so the fp32 path's global-scratch store runs);
+fp32 and bf16 weights. Tolerance: rel RMS <= 1e-4 in fp32 (sums in another
+order), 2e-2 with bf16 weights and a bf16 output (the plain versions round
+where the kernel does). With bf16 weights K4a is K4's persistent launch
+reading the per-head arrays in place: one device kernel a call, and at
+head_dim 64 its output equals K4's bit for bit."""
+
+import ctypes
 
 import pytest
 import torch
@@ -70,3 +75,54 @@ def test_fused_kernel_repeats_bit_for_bit(dev):
     kw = dict(nh=c.num_attention_heads, hd=64, eps=c.rms_norm_eps)
     first = ptk.pre_transformer_fused(kp, x, **kw)
     assert torch.equal(first, ptk.pre_transformer_fused(kp, x, **kw))
+
+
+def test_persistent_fused_kernel_equals_k4_bit_for_bit(dev):
+    c = cfg(64)
+    pt = random_vocoder_params(c, seed=5, device=dev)["pre_transformer"]
+    kp = ptk.build_pretransformer_fused_params(pt, c, torch.bfloat16)
+    packed = ptk.build_pretransformer_params(pt, c, torch.bfloat16)
+    kw = dict(nh=c.num_attention_heads, hd=64, eps=c.rms_norm_eps)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for b, t in ((1, 1), (1, 26), (2, 110), (1, 300)):
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, t, c.latent_dim, generator=g, device=dev).to(xdt)
+            got = ptk.pre_transformer_fused(kp, x, **kw)
+            assert torch.equal(got, ptk.pre_transformer_kernel(packed, x, **kw)), (b, t, xdt)
+
+
+def graph_nodes(call) -> list[int]:
+    """The node types (0 = a kernel) of a CUDA graph captured from one call:
+    the device work it launches, read from the driver rather than from
+    torch.profiler, which may lose a kernel's record late in a process
+    (chip_smoke.py's one_kernel_per_call)."""
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    drv = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+def test_persistent_fused_kernel_is_one_device_kernel(dev):
+    """bf16 weights: one kernel a call; fp32 weights: the launch sequence,
+    3 + 8 nl kernels."""
+    c = cfg(64)
+    pt = random_vocoder_params(c, seed=6, device=dev)["pre_transformer"]
+    x = torch.randn(1, 110, c.latent_dim, device=dev)
+    kw = dict(nh=c.num_attention_heads, hd=64, eps=c.rms_norm_eps)
+    for dt, kernels in ((torch.bfloat16, 1), (torch.float32, 3 + 8 * c.num_hidden_layers)):
+        kp = ptk.build_pretransformer_fused_params(pt, c, dt)
+        before = ptk.fused_launches
+        assert graph_nodes(lambda: ptk.pre_transformer_fused(kp, x, **kw)) == [0] * kernels, dt
+        assert ptk.fused_launches == before + 2  # the call before the capture, and the capture

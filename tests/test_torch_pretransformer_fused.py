@@ -107,15 +107,17 @@ def test_plain_equals_k4_plain_on_the_same_weights():
         x = torch.from_numpy(x_in(b * t, b, t, CFG.latent_dim))
         got = ptk.pre_transformer_fused_plain(fused, x, **KW)
         assert rel_rms(got, ptk.pre_transformer_plain(packed, x, **KW)) <= REL_RMS, (b, t)
-    # the same bf16 weights in both; K4's plain version rounds its operands
-    # to bf16 for bf16 weights (as K4's tensor-core kernel does) and K4a's
-    # does not, so K4 reads them here widened to fp32, which rounds nothing
+    # the same bf16 weights in both: both plain versions round each
+    # product's operands to bf16 at K4's points (which the persistent
+    # kernel shares for both), and neither rounds them widened to fp32
     fused16 = ptk.build_pretransformer_fused_params(pt, CFG, torch.bfloat16)
     packed16 = ptk.build_pretransformer_params(pt, CFG, torch.bfloat16)
-    widened = {k: v.float() for k, v in packed16.items()}
     x = torch.from_numpy(x_in(3, 2, 13, CFG.latent_dim))
-    assert rel_rms(ptk.pre_transformer_fused_plain(fused16, x, **KW),
-                   ptk.pre_transformer_plain(widened, x, **KW)) <= REL_RMS
+    for fused_w, packed_w in ((fused16, packed16),
+                              ({k: v.float() for k, v in fused16.items()},
+                               {k: v.float() for k, v in packed16.items()})):
+        assert rel_rms(ptk.pre_transformer_fused_plain(fused_w, x, **KW),
+                       ptk.pre_transformer_plain(packed_w, x, **KW)) <= REL_RMS
 
 
 def test_entry_point_takes_the_plain_version_on_the_cpu_only():
