@@ -21,7 +21,9 @@ non-zero):
   kernels     - K3, K4, K4a, K5, K6, K7 and the SEANet blocks' upsample
                 against their plain PyTorch versions at the 0.6B main path's
                 shapes, fp32 and bf16, with times and bounds (K3 at M = 1,
-                2, 64, 300 and the text projection's 3 and 114; K7 at 4 and
+                2, 64, 300, the text projection's 3 and 114, the serving
+                step's 8 and 16 and the K3 configuration's batched prefill's
+                512 (the last three not summed in the kernels line); K7 at 4 and
                 6 bits on the mixed mode's linears, and one 2-, 3- and 8-bit
                 shape, each at M = 1 and M = 300, and the 4-bit text
                 projection at 3 and 114; past their M0 (the tensor-core
@@ -35,11 +37,13 @@ non-zero):
                 fp32: the exact sequences), one device kernel a call with
                 bf16 weights (profiler); K4, K5 and K6 with bf16 weights (the
                 persistent launches and the tensor-core conv) at T = 26 and
-                110 (K4, K6 also B = 2; K5 from fp32 and bf16 input), their
+                110 (K4, K6 also B = 2; K4, K5, K6 and the blocks' upsample
+                also at B = 8, at a serve window's T = 26 and at
+                generate_many's T = 110; K5 from fp32 and bf16 input), their
                 TFLOP/s (K5 also its share of the bytes bound), K4's and
                 K5's event against their profiler device time and one
                 device kernel a call; the blocks' upsample (the 2-tap
-                tensor-core conv) at blocks 0-3, T = 26 and 110; and one
+                tensor-core conv) at blocks 0-3, at K6's shapes; and one
                 bf16 torch conv1d of block 0's first 7-tap conv beside K6's
                 launch of it, as a yardstick for the tile (the port never
                 calls conv1d)
@@ -65,7 +69,25 @@ non-zero):
                 plain one, with fp32 and with bf16 kernel weights; the
                 device time of a 26-frame and a 110-frame vocoder window by
                 kernel; a profile of the frame loop
-  k3-pipeline - the same with the megakernels off (every linear on K3)
+  serving     - batched lockstep serving on the pipeline phase's model
+                (megakernel configuration's weights; the batched path drops
+                the megakernels and runs the `w8r` product at M = B):
+                generate_many on 8 texts of different lengths at
+                temperature 0 and 0.85, generate_many_stream on the 8
+                (batch_size=8) and on 6 through 4 slots (2 admitted
+                mid-flight); each lockstep step one CUDA graph replay; the
+                audio checked, K4, K5, K6, the blocks' upsample and K3 (text
+                projection) launched, K1 and K2 not; then the step at B = 1,
+                4, 8 by graph and eagerly (wall, device, capture s, graph
+                pool bytes, frames/s), the graph against the eager step at
+                temperature 0 (same frames and state), and B = 8 against
+                B = 1 teacher-forced (TOL_BATCH)
+  k3-pipeline - the same with the megakernels off (every linear on K3);
+                then 16 lockstep steps at B = 8 from one graph (K3's
+                wrapper counts the warm-up and the capture, twice a step's
+                launches at M = 8 and 16; the replays' K3 kernels are
+                counted by name in a profile of 5 replays: a step's
+                launches each)
   mixed-pipeline - runtime_quantization_mode="mixed_4_6" with the
                 megakernels off on the same dir: every talker and
                 code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle; a
@@ -90,7 +112,10 @@ non-zero):
                 resident bytes, and K1, K2, K3, K4, K5, K6 and the blocks'
                 upsample launched,
                 K2g's kernel, K4a and K7 not
-The line before the last is {"kernels": [...]} and the last is
+The line before the last is {"kernels": [...]} (each row with its launches on
+every path: "launches" on the pipeline phase, "launches_<path>" on the
+others, "launches_serving" on the serving runs: the wrappers' calls, eager
+and captured, not the graph replays) and the last is
 {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
@@ -104,6 +129,7 @@ the tensor cores, 1,979 TOP/s int8).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -408,7 +434,8 @@ def phase_kernels(rec: Record) -> None:
               (1024, 3072), (2048, 2048), (1024, 2048)]
     for k, o in shapes:
         w8, s, b = qmm_weights(gen, dev, None, k, o)
-        rows = (1, 2, 3, 64, 114, 300) if k == 2048 else (1, 2, 64, 300)
+        rows = ((1, 2, 3, 8, 16, 64, 114, 300, 512) if k == 2048
+                else (1, 2, 8, 16, 64, 300, 512))
         for dtype in ("float32", "bfloat16"):
             for m in rows:
                 x = randn(m, k).to(getattr(torch, dtype))
@@ -419,7 +446,7 @@ def phase_kernels(rec: Record) -> None:
                 rec.compare("int8_matmul", f"M={m} K={k} O={o}", dtype, got, ref,
                             (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b)), "graph"),
                             time_ms(lambda: qm.int8_matmul_plain(x, w8, s, b), it),
-                            nb, {dtype: 2 * m * k * o})
+                            nb, {dtype: 2 * m * k * o}, timed=m not in (8, 16, 512))
                 if m > qm.M0:
                     same_bits("int8_matmul", f"M={m} K={k} O={o} {dtype}", got,
                               lambda: qm.int8_matmul_kernel(x, w8, s, b))
@@ -464,7 +491,7 @@ def phase_kernels(rec: Record) -> None:
         dt = getattr(torch, dtype)
         kp = ptk.build_pretransformer_params(dense["pre_transformer"], cfg, dt)
         mats = weight_numel(kp, ("wi", "wqkv", "wo", "wgu", "wd", "wout"))
-        for b, t in ((1, 26), (1, 110), (2, 110)):
+        for b, t in ((1, 26), (1, 110), (2, 110), (8, 26), (8, 110)):
             x = randn(b, t, cfg.latent_dim).to(dt)
             kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
             got = ptk.pre_transformer_kernel(kp, x, **kw)
@@ -503,21 +530,23 @@ def phase_kernels(rec: Record) -> None:
             if not vs_k4 <= K4A_VS_K4[dtype]:
                 raise SystemExit("K4a disagrees with K4 on the same weights")
 
-        # K5 at the stream window's and the generate window's rows; the
-        # pipeline hands it fp32 input (timed), bf16 input checked beside it
-        for t in (26, 110):
+        # K5 at the stream window's and the generate window's rows, B = 1
+        # and the serving paths' 8; the pipeline hands it fp32 input
+        # (timed), bf16 input checked beside it
+        for b, t in ((1, 26), (1, 110), (8, 26), (8, 110)):
             for xdt in (dt,) if dtype == "float32" else (torch.float32, torch.bfloat16):
-                x = randn(1, t, cfg.latent_dim).to(xdt)
+                x = randn(b, t, cfg.latent_dim).to(xdt)
                 for i, sp in enumerate(ups[dt]):
                     got = upk.upsample_stage_kernel(sp, x)
                     ti = x.shape[1]
                     timing = time_ms(lambda: upk.upsample_stage_kernel(sp, x), 10)
                     nb = nbytes(x, got, *sp.values())
-                    rec.compare("upsample_stage", f"stage{i} T={ti} x {str(xdt)[6:]}", dtype, got,
-                                upk.upsample_stage_plain(sp, x), timing,
+                    rec.compare("upsample_stage", f"stage{i} B={b} T={ti} x {str(xdt)[6:]}",
+                                dtype, got, upk.upsample_stage_plain(sp, x), timing,
                                 time_ms(lambda: upk.upsample_stage_plain(sp, x), 5),
-                                nb, {dtype: upsample_ops(sp, ti)}, timed=xdt == torch.float32)
-                    if dtype == "bfloat16":
+                                nb, {dtype: b * upsample_ops(sp, ti)},
+                                timed=xdt == torch.float32 and b == 1)
+                    if dtype == "bfloat16" and b == 1:
                         b_ms = bound(nb, {dtype: upsample_ops(sp, ti)})[0]
                         log(f"[kernels] upsample_stage stage{i} T={ti} x {str(xdt)[6:]} bf16: "
                             f"{upsample_ops(sp, ti) / timing[0] / 1e9:.1f} TFLOP/s of the card's "
@@ -526,7 +555,7 @@ def phase_kernels(rec: Record) -> None:
                     x = got
 
         blocks = dense["decoder"]["blocks"]
-        for b, t in ((1, 26), (1, 110), (2, 26)):
+        for b, t in ((1, 26), (1, 110), (2, 26), (8, 26), (8, 110)):
             x = randn(b, 4 * t, cfg.decoder_dim, scale=0.5).to(dt)
             for i, (block, rate) in enumerate(zip(blocks, cfg.upsample_rates)):
                 tail = None
@@ -1703,6 +1732,397 @@ def phase_modes(card: str, d: str):
     return launches, m
 
 
+SERVE_TEXTS = (
+    "Good morning.",
+    "The train leaves at half past nine from the second platform.",
+    "Please remember to water the plants on the balcony before you go out tonight.",
+    "A short one.",
+    TEXT,
+    "Numbers like twelve, forty and three hundred are read out in full by the voice.",
+    "The museum opens its new wing to the public next week, with paintings from four "
+    "centuries and a garden of sculptures behind the old library.",
+    "Thank you for calling, we will be with you shortly.",
+)
+# B = 8 against B = 1, teacher-forced: both read the same bf16 weights, but
+# the `w8r` product's fp32 sums run in another order at M = 8 (and 512 in
+# prefill) than at M = 1 (and 64), and each layer's output is rounded to
+# bf16 before the next reads it: a sum that lands on the other side of a
+# rounding boundary moves that element by 2^-9, and the random-weight
+# layers carry it on, as the W8A8 steps of TOL_W8A8's note do (1.6e-2 on
+# the logits there). Held at TOL["bfloat16"]; in fp32 on the CPU the two
+# widths agree to ~2e-7
+TOL_BATCH = TOL["bfloat16"]
+
+
+def _serving_state(pl, texts, statics):
+    """A prefilled B = len(texts) serving state of `texts` (built-in speaker),
+    the trailing text padded to its bucket."""
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    pds = [pl._assemble(t, "aiden") for t in texts]
+    t_bucket = gen_mod.pick_bucket(max(pd.trailing_hidden.shape[1] for pd in pds),
+                                   gen_mod.TRAILING_BUCKETS)
+    e, tr, lengths, totals = srv._pad_prompts(pds, statics.capacity - gen_mod.RING_SLACK,
+                                              t_bucket)
+    return srv.prefill_batched(pl.params, e, lengths, tr, totals, pds[0].tts_pad_embed,
+                               srv._device_ints(range(len(texts)), e.device), statics)
+
+
+def _statics(pl, chunk: int):
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    # prompt bucket 64: the built-in speaker's 9-row prompts
+    return gen_mod.GenStatics(config=pl.config, capacity=64 + gen_mod.RING_SLACK,
+                              chunk_steps=chunk, track_cp_penalty=False)
+
+
+def _state_diff(a: dict, b: dict) -> tuple[float, bool]:
+    """(largest rel RMS over the float arrays, every integer / bool array equal)."""
+    import torch
+
+    worst, same = 0.0, True
+    for k, v in a.items():
+        if isinstance(v, dict):
+            w, s = _state_diff(v, b[k])
+            worst, same = max(worst, w), same and s
+        elif v.is_floating_point():
+            worst = max(worst, rel_rms(v.float(), b[k].float()))
+        else:
+            same = same and bool(torch.equal(v, b[k]))
+    return worst, same
+
+
+def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
+    """The lockstep step at each batch width: graph capture s and pool
+    bytes; wall ms a step by graph replay (20 replays ended by a sync) and
+    by the eager step (3 steps); device ms a step of each (profiler);
+    device kernels a step."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    out = {}
+    statics = _statics(pl, 1)
+    p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
+    for b in widths:
+        state = _serving_state(pl, SERVE_TEXTS[:b], statics)
+        eager = srv._clone(state)
+        g_state = srv.bind(pl.params, pl.cp_params, state, statics, True)
+        g = g_state.graph
+        g.set_temps(np.full(b, 0.85, np.float32))
+        temps = torch.full((b,), 0.85, device=state["logits"].device)
+
+        def wall(fn, n):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / n * 1e3
+
+        def device(fn, n, top=0):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            rows = []
+            for e in prof.key_averages():
+                us = (getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0))
+                if us > 0:
+                    rows.append((us / n / 1e3, e.count // n, e.key[:60]))
+            for ms, k, key in sorted(rows, reverse=True)[:top]:
+                log(f"[{label}]   B={b} graph step: {ms:.3f} ms in {k} launches: {key}")
+            return device_us(prof) / 1e3 / n, len(device_kernels(prof)) / n
+
+        def eager_step():
+            srv.lockstep_step(p, cp, eager, temps, statics, True)
+
+        check_pool(g, label)
+        r = {"capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+             "graph_ms": wall(g.replay, 20), "eager_ms": wall(eager_step, 3),
+             "graph_events_ms": _events_ms(lambda: [g.replay() for _ in range(20)]) / 20}
+        r["graph_device_ms"], r["kernels"] = device(g.replay, 5, top=8 if b == 8 else 0)
+        r["eager_device_ms"], r["eager_kernels"] = device(eager_step, 2)
+        r["frames_per_s"] = b / r["graph_ms"] * 1e3
+
+        def dev_ms(v):
+            return f"{v:.3f} ms" if v > 0 else "not measured (the profiler saw no device time)"
+
+        log(f"[{label}] lockstep step B={b} (T=0.85): graph {r['graph_ms']:.3f} ms wall, "
+            f"{r['graph_events_ms']:.3f} ms by events over 20 replays, device "
+            f"{dev_ms(r['graph_device_ms'])} in {r['kernels']:.0f} device kernels; eager "
+            f"{r['eager_ms']:.3f} ms wall, device {dev_ms(r['eager_device_ms'])} in "
+            f"{r['eager_kernels']:.0f} device kernels; capture {r['capture_s']:.3f} s, graph "
+            f"pool {r['pool_bytes']} bytes; {r['frames_per_s']:.1f} frames/s ({card}, bf16)")
+        out[b] = r
+        del g_state, state, eager
+        torch.cuda.empty_cache()
+    return out
+
+
+def graph_vs_eager(pl, card: str, steps: int = 8):
+    """B = 8 at temperature 0: a chunk of graph replays against the same
+    steps run eagerly from a copy of the state: the same frames, the same
+    integer state, float state within TOL["bfloat16"]. Returns the frames."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    statics = _statics(pl, steps)
+    state = _serving_state(pl, SERVE_TEXTS, statics)
+    eager = srv._clone(state)
+    frames, _, _, state = srv.decode_chunk_serving(pl.params, pl.cp_params, state, 0.0, statics)
+    p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
+    temps = torch.zeros(len(SERVE_TEXTS), device=eager["logits"].device)
+    ref = []
+    for _ in range(steps):
+        srv.lockstep_step(p, cp, eager, temps, statics, False)
+        ref.append(eager["frame"].clone())
+    ref = torch.stack(ref, dim=1)
+    worst, same = _state_diff(state, eager)
+    codes_equal = bool(torch.equal(frames, ref))
+    bitwise = worst == 0.0 and same
+    log(f"[serving] graph vs eager, B=8, {steps} steps at temperature 0: frames "
+        f"{'equal' if codes_equal else 'DIFFER'}; state: integer arrays "
+        f"{'equal' if same else 'DIFFER'}, float arrays rel RMS max {worst:.3e} "
+        f"(tol {TOL['bfloat16']:g}; {'bit for bit' if bitwise else 'not bit for bit'}) ({card})")
+    if not (codes_equal and same and worst <= TOL["bfloat16"]):
+        raise SystemExit("the lockstep step's CUDA graph disagrees with the eager step")
+    return frames
+
+
+def batch_vs_single(pl, card: str, frames) -> None:
+    """B = 8 against B = 1, teacher-forced over the graph run's frames: the
+    talker logits after each step of streams 0 and 6 (the shortest and the
+    longest text) at B = 1 against the same stream's at B = 8."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    valid = (frames[..., 0] >= 0).all(0)  # steps every stream emitted
+    steps = int(valid.long().cumprod(0).sum())
+    if steps < 4:
+        raise SystemExit(f"[serving] only {steps} steps where every stream emitted")
+    statics = _statics(pl, steps)
+    p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
+    wide = _serving_state(pl, SERVE_TEXTS, statics)
+    singles = {j: _serving_state(pl, SERVE_TEXTS[j:j + 1], statics) for j in (0, 6)}
+    dev = wide["logits"].device
+    errs, flips = [], 0
+    for i in range(steps):
+        srv.lockstep_step(p, cp, wide, torch.zeros(8, device=dev), statics, False,
+                          forced=frames[:, i])
+        for j, one in singles.items():
+            srv.lockstep_step(p, cp, one, torch.zeros(1, device=dev), statics, False,
+                              forced=frames[j:j + 1, i])
+            errs.append(rel_rms(one["logits"][0], wide["logits"][j]))
+            flips += int(torch.argmax(one["logits"][0]) != torch.argmax(wide["logits"][j]))
+    worst = max(errs)
+    log(f"[serving] B=8 vs B=1 teacher-forced over {steps} steps, streams 0 and 6: talker "
+        f"logits rel RMS max {worst:.3e} mean {float(np.mean(errs)):.3e} (tol {TOL_BATCH:g}), "
+        f"code-0 argmax flips {flips}/{len(errs)} ({card}, bf16)")
+    if not worst <= TOL_BATCH:
+        raise SystemExit("the B = 8 lockstep step disagrees with B = 1")
+
+
+def phase_serving(pl, card: str):
+    """Batched serving on the megakernel configuration's weights (the
+    megakernels idle: the batched path runs the `w8r` product at M = B):
+    generate_many on 8 texts at temperature 0 and 0.85, generate_many_stream
+    on the 8 (batch_size=8) and on 6 through 4 slots (2 admitted
+    mid-flight), each output checked; then, outside the counted run, the
+    step's times at B = 1, 4, 8, graph against eager, B = 8 against B = 1.
+    Returns (launch counts of the counted run, metrics)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    label, spf, m = "serving", pl._samples_per_frame, {}
+    kept, filt = _counting(gen_mod)
+    admit, admits = srv.admit_stream, []
+
+    def counting_admit(*args, **kwargs):
+        admits.append(args[1])
+        return admit(*args, **kwargs)
+
+    srv.admit_stream = counting_admit
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        graphs_before = sum(len(v) for v in srv.graphs(pl.params).values())
+        for temp in (0.0, 0.85):
+            kept.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = pl.generate_many(list(SERVE_TEXTS), "aiden", temperature=temp,
+                                    max_tokens=96, seed=0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ok = (len(kept) == 8 and all(n > 0 for n in kept)
+                  and all(len(o) == n * spf and np.isfinite(o).all()
+                          for o, n in zip(outs, kept)))
+            audio_s = sum(len(o) for o in outs) / pl.sample_rate
+            m[f"generate_many_rtf_t{temp}"] = secs / audio_s
+            log(f"[{label}] generate_many, 8 texts, T={temp}: {kept} valid frames, {secs:.3f} s "
+                f"for {audio_s:.2f} s of audio, serving RTF {secs / audio_s:.4f}, "
+                f"{sum(kept) / secs:.1f} frames/s with the vocoder {'ok' if ok else 'FAIL'} "
+                f"({card}, bf16)")
+            if not ok:
+                raise SystemExit(f"generate_many output is wrong at T={temp}")
+        for texts, width in ((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)):
+            admits.clear()
+            first, got = {}, {i: [] for i in range(len(texts))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, ch in pl.generate_many_stream(list(texts), "aiden", temperature=0.85,
+                                                 max_tokens=96, batch_size=width, seed=0):
+                if len(ch.samples) and i not in first:
+                    first[i] = time.perf_counter() - t0
+                got[i].append(ch)
+            secs = time.perf_counter() - t0
+            audio_s = 0.0
+            for i, cs in got.items():
+                pos = 0
+                for c in cs:
+                    if (c.token_range[0] != pos or not np.isfinite(c.samples).all()
+                            or len(c.samples) != (c.token_range[1] - pos) * spf):
+                        raise SystemExit(f"[{label}] stream chunk {c.token_range} of text {i} "
+                                         "does not tile its frames")
+                    pos = c.token_range[1]
+                    audio_s += len(c.samples) / pl.sample_rate
+                if sum(c.is_final for c in cs) != 1 or not cs[-1].is_final or pos == 0:
+                    raise SystemExit(f"[{label}] text {i}: not one final chunk, or no audio")
+            m[f"stream_rtf_b{width}"] = secs / audio_s
+            m[f"stream_first_audio_b{width}"] = [first[i] for i in sorted(first)]
+            log(f"[{label}] generate_many_stream, {len(texts)} texts, batch_size={width}: "
+                f"{len(admits)} admitted mid-flight, {secs:.3f} s for {audio_s:.2f} s of audio, "
+                f"serving RTF {secs / audio_s:.4f}; first audio per text (s): "
+                + ", ".join(f"{first[i]:.3f}" for i in sorted(first)) + f" ({card}, bf16)")
+            if width == 4 and len(admits) < 2:
+                raise SystemExit(f"[{label}] {len(admits)} admissions; expected at least 2")
+        launches = read_counts()
+    finally:
+        gen_mod.filter_valid_frames = filt
+        srv.admit_stream = admit
+    check_counts(label, launches, need=("int8_matmul",) + ("pre_transformer", "upsample_stage",
+                                                          "residual_units", "block_upsample"),
+                 idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
+                       "pre_transformer_fused"))
+    pool = srv.graphs(pl.params)
+    for key, gs in pool.items():
+        for g in gs:
+            check_pool(g, label)
+            log(f"[{label}] graph B={key[0]} capacity={key[1]} trailing={key[2]} "
+                f"chunk_steps={key[4].chunk_steps} sampled={key[5]}: captured in "
+                f"{g.capture_s:.3f} s, pool {g.pool_bytes} bytes")
+    log(f"[{label}] graphs captured in the counted run: "
+        f"{sum(len(v) for v in pool.values()) - graphs_before}")
+    m["steps"] = step_times(pl, card, label)
+    frames = graph_vs_eager(pl, card)
+    batch_vs_single(pl, card, frames)
+    return launches, m
+
+
+def serving_k3(pl, card: str):
+    """16 lockstep steps of the K3 configuration at B = 8: every talker and
+    code-predictor linear on K3 at M = 8 (the cp's first pass at 16), from
+    one graph. The counts are set to 0 before the graph's warm-up and
+    capture and read after the steps: K3's wrapper counts the warm-up's and
+    the capture's calls, twice the launches the capture recorded (the M of
+    each call is recorded). A replay launches the recorded kernels without
+    the wrapper: K3's device kernels are counted by name in a profile of 5
+    replays and must be the capture's launches each. Returns the counts."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    statics = _statics(pl, 16)
+    state = _serving_state(pl, SERVE_TEXTS, statics)
+    fn, ms = qm.int8_matmul_kernel, []
+
+    def recording(x, *args):
+        ms.append(x.shape[0])
+        return fn(x, *args)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    qm.int8_matmul_kernel = recording
+    try:
+        state = srv.bind(pl.params, pl.cp_params, state, statics, True)
+    finally:
+        qm.int8_matmul_kernel = fn
+    g = state.graph
+    check_pool(g, "k3-serving")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, counts, _, state = srv.decode_chunk_serving(pl.params, pl.cp_params, state, 0.85,
+                                                        statics)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    hist = {mm: ms.count(mm) // 2 for mm in sorted(set(ms))}  # warm-up and capture
+    per_step = g.step_launches[srv._COUNTED.index(qm)]
+    replayed = replayed_k3(g, 5)
+    ok = (launches["int8_matmul"] == 2 * per_step > 0 and replayed == 5 * per_step
+          and bool((frames[..., 0] >= 0).all()) and 8 in hist)
+    log(f"[k3-serving] 16 lockstep steps at B=8 (T=0.85) from one graph: {secs * 1e3:.1f} ms, "
+        f"{secs / 16 * 1e3:.3f} ms a step; K3's wrapper {launches['int8_matmul']} calls in the "
+        f"warm-up and the capture ({per_step} a step; M of a step's launches: {hist}); K3 "
+        f"kernels in a profile of 5 replays {replayed} (expected {5 * per_step}); graph "
+        f"captured in {g.capture_s:.3f} s, pool {g.pool_bytes} bytes "
+        f"{'ok' if ok else 'FAIL'} ({card}, bf16)")
+    if not ok:
+        raise SystemExit("the K3 configuration's lockstep steps did not run K3 at M = 8 "
+                         "in every replay")
+    check_counts("k3-serving", launches, need=("int8_matmul",),
+                 idle=tuple(k for k in KERNELS if k != "int8_matmul"))
+    step_times(pl, card, "k3-serving", widths=(8,))
+    return launches
+
+
+# K3's device kernels: its GEMV, and the shared tile at 8 bits (K7's 8-bit
+# tile has the same name; K7 is idle in the K3 configuration)
+K3_NAMES = re.compile(r"qt_int8_matmul_kernel|qt_qmm_tile_kernel<8,")
+
+
+def replayed_k3(g, n: int) -> int:
+    """K3's device kernels in a torch.profiler window of n replays of graph
+    g. A window short of n times the capture's launches is taken again, up
+    to three windows (a profiler window can lose records; see
+    one_kernel_per_call); the last window's count is returned."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    want = n * g.step_launches[srv._COUNTED.index(qm)]
+    for window in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                g.replay()
+            torch.cuda.synchronize()
+        names = [name for name in device_kernels(prof) if K3_NAMES.search(name)]
+        got = len(names)
+        if got >= want:
+            log(f"[k3-serving] K3 kernels in {n} replays by name: "
+                + ", ".join(f"{names.count(k)} {k[:70]}" for k in sorted(set(names))))
+            break
+        log(f"[k3-serving] profile window {window}: {got} K3 kernels of {want}")
+    return got
+
+
+def check_pool(g, label: str) -> None:
+    """A graph's pool must have grown at its capture."""
+    if g.pool_bytes <= 0:
+        raise SystemExit(f"[{label}] graph pool read {g.pool_bytes} bytes at its capture")
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +2179,7 @@ def main() -> int:
         vocoder_check(pl)
         vocoder_windows(pl, card)
         profile_frames(pl, "pipeline", card)
+        launches["serving"], results["serving"] = phase_serving(pl, card)
         del pl
         torch.cuda.empty_cache()
 
@@ -1769,6 +2190,7 @@ def main() -> int:
             idle=megakernels + sampler + ("packed_matmul",))
         no_sync_chunk(pl, "k3-pipeline")
         profile_frames(pl, "k3-pipeline", card, steps=4)
+        launches["serving_k3"] = serving_k3(pl, card)
         del pl
         torch.cuda.empty_cache()
 
@@ -1834,6 +2256,7 @@ def main() -> int:
             row["counterpart_of"] = "plain XLA"
         for path in ("k3_path", "mixed", "prequant", "modes"):
             row[f"launches_{path}"] = launches[path][name]
+        row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

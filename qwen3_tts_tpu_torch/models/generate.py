@@ -18,6 +18,8 @@ talker step is one call of K1 (ops/cuda/talker_megakernel.py).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -31,6 +33,32 @@ KV_WINDOW = 192
 TRIM_INTERVAL = 15
 MAX_CONSECUTIVE_PAD = 6
 RING_SLACK = 224  # > KV_WINDOW + TRIM_INTERVAL; keeps ring slots collision-free
+
+# Length buckets of the batched serving path (models/serving.py): every
+# stream's prompt and trailing text are padded to one bucket, so the ring
+# slot is shared and a lockstep step has one shape per bucket pair
+PROMPT_BUCKETS = (64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
+TRAILING_BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+
+def pick_bucket(n: int, buckets=PROMPT_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"length {n} exceeds largest bucket {buckets[-1]}")
+
+
+@dataclass(frozen=True)
+class GenStatics:
+    """Static generation parameters of the batched path (hashable): with
+    the batch width and the trailing bucket they key the lockstep step's
+    CUDA graph (serving.LockstepGraph)."""
+
+    config: Qwen3TTSConfig
+    capacity: int
+    chunk_steps: int
+    track_cp_penalty: bool
+    repetition_penalty: float = 1.05
 
 
 def prefill(params: dict, prompt_data, config: Qwen3TTSConfig) -> dict:

@@ -150,10 +150,13 @@ def decode_frames(params: dict, codes: torch.Tensor, cfg: TokenizerDecoderConfig
 
 
 def chunked_decode(params: dict, codes: np.ndarray, cfg: TokenizerDecoderConfig, *,
-                   device, chunk_size: int = 100, left_context: int = 10) -> np.ndarray:
+                   device, chunk_size: int = 100, left_context: int = 10,
+                   lengths: list[int] | None = None) -> np.ndarray:
     """Decode [B, nq, T] codes in chunks of `chunk_size` frames, each with
     `left_context` frames of re-decoded context, all chunks batched into one
-    call; returns [B, T * total_upsample] float32 numpy."""
+    call; returns [B, T * total_upsample] float32 numpy. `lengths` (each
+    stream's valid frames, when streams are padded to one T) skips the rows
+    that hold no valid frame; their samples stay 0."""
     codes = np.asarray(codes)
     b, nq, t = codes.shape
     if t == 0:
@@ -162,11 +165,14 @@ def chunked_decode(params: dict, codes: np.ndarray, cfg: TokenizerDecoderConfig,
     n_chunks = -(-t // chunk_size)
     padded = np.pad(codes, ((0, 0), (0, 0), (left_context, n_chunks * chunk_size - t)))
     width = chunk_size + left_context
-    rows = [(j, i) for i in range(n_chunks) for j in range(b)]
+    rows = [(j, i) for i in range(n_chunks) for j in range(b)
+            if lengths is None or i * chunk_size < lengths[j]]
+    out = np.zeros((b, n_chunks * chunk_size * up), np.float32)
+    if not rows:
+        return out[:, : t * up]
     batch = np.stack([padded[j, :, i * chunk_size: i * chunk_size + width] for j, i in rows])
     wav = decode_frames(params, torch.from_numpy(batch).long().to(device), cfg)
     wav = wav[:, left_context * up:].cpu().numpy()
-    out = np.zeros((b, n_chunks * chunk_size * up), np.float32)
     s = chunk_size * up
     for r, (j, i) in enumerate(rows):
         out[j, i * s:(i + 1) * s] = wav[r]

@@ -42,23 +42,44 @@ def _mulhilo(m: int, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (p2 >> 16) + (r >> 32), r & _MASK
 
 
+def _rounds(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10's ten rounds on int64 tensors holding 32-bit words."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
 def philox_words(seed: torch.Tensor, rows: int, vocab: int) -> torch.Tensor:
     """The 32-bit word for logit v of draw r, [rows, vocab] int64."""
     dev = seed.device
     v = torch.arange(vocab, device=dev)
     c0 = (v >> 2)[None, :].expand(rows, vocab)
     c1 = torch.arange(rows, device=dev)[:, None].expand(rows, vocab)
-    c2 = torch.zeros_like(c0)
-    c3 = torch.zeros_like(c0)
     s = seed.reshape(()).long()
-    k0, k1 = s & _MASK, (s >> 32) & _MASK
-    for _ in range(10):
-        hi0, lo0 = _mulhilo(_M0, c0)
-        hi1, lo1 = _mulhilo(_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
-    words = torch.stack([c0, c1, c2, c3], dim=-1)
+    words = torch.stack(_rounds(c0, c1, torch.zeros_like(c0), torch.zeros_like(c0),
+                                s & _MASK, (s >> 32) & _MASK), dim=-1)
     return words.gather(-1, (v & 3)[None, :, None].expand(rows, vocab, 1))[..., 0]
+
+
+def philox_words_streams(seeds: torch.Tensor, steps: torch.Tensor, rows: int,
+                         vocab: int) -> torch.Tensor:
+    """philox_words widened to B streams, [B, rows, vocab] int64: stream b's
+    key is seeds[b] and its counter (v // 4, r, steps[b], 0), so its words
+    depend on its own seed and step only. At step 0 they are
+    philox_words(seeds[b], rows, vocab)'s. One Philox call per counter gives
+    the words of four logits, as in the kernel."""
+    dev = seeds.device
+    b, groups = seeds.shape[0], -(-vocab // 4)
+    c0 = torch.arange(groups, device=dev)[None, None, :].expand(b, rows, groups)
+    c1 = torch.arange(rows, device=dev)[None, :, None].expand(b, rows, groups)
+    c2 = steps.long()[:, None, None].expand(b, rows, groups)
+    s = seeds.long()[:, None, None]
+    words = torch.stack(_rounds(c0, c1, c2, torch.zeros_like(c0), s & _MASK,
+                                (s >> 32) & _MASK), dim=-1)
+    return words.reshape(b, rows, 4 * groups)[..., :vocab]
 
 
 def philox4(seed: int, c0: int, c1: int) -> tuple[int, int, int, int]:
@@ -105,11 +126,22 @@ def gumbel_pick_grouped(lg: torch.Tensor, seed: int, temperature: float, row: in
     return min(best, key=lambda b: (-b[0], b[1]))[1]
 
 
+def _gumbel(words: torch.Tensor) -> torch.Tensor:
+    """g = -log(-log(u)) from the words' 24-bit uniforms, fp32."""
+    u = ((words >> 8).float() + 0.5) * (1.0 / 16777216.0)
+    return -torch.log(-torch.log(u))
+
+
 def gumbel_noise(seed: torch.Tensor, rows: int, vocab: int) -> torch.Tensor:
     """g = -log(-log(u)) from the 24-bit uniforms, [rows, vocab] fp32."""
-    u24 = (philox_words(seed, rows, vocab) >> 8).float()
-    u = (u24 + 0.5) * (1.0 / 16777216.0)
-    return -torch.log(-torch.log(u))
+    return _gumbel(philox_words(seed, rows, vocab))
+
+
+def gumbel_noise_streams(seeds: torch.Tensor, steps: torch.Tensor, rows: int,
+                         vocab: int) -> torch.Tensor:
+    """The same noise for B streams from philox_words_streams, [B, rows,
+    vocab] fp32: the batched serving path's draws."""
+    return _gumbel(philox_words_streams(seeds, steps, rows, vocab))
 
 
 def gumbel_pick(lg: torch.Tensor, temperature: float, noise: torch.Tensor | None) -> torch.Tensor:

@@ -5,7 +5,9 @@ or any prompt mode by keyword), generate_voice_design,
 generate_custom_voice, generate_icl, generate_stream and its VoiceDesign /
 CustomVoice forms, generate_batch (long text with a 480-sample crossfade),
 generate_to_file (streaming WAV), extract_speaker_embedding /
-encode_reference_audio for cloning, and warmup.
+encode_reference_audio for cloning, and warmup; and batched serving of
+several texts at once, generate_many and generate_many_stream
+(models/serving.py; on CUDA each lockstep step replays a CUDA graph).
 
 Model directory layout (the reference's):
   config.json            talker config (flat or nested talker_config)
@@ -49,6 +51,7 @@ from .io import safetensors_io
 from .io.wav import StreamingWAVWriter
 from .models import generate as gen_mod
 from .models import prompt as prompt_mod
+from .models import serving as srv
 from .models import vocoder as voc
 from .models.audio_encoder import AudioEncoder
 from .models.speaker_encoder import SpeakerEncoder
@@ -357,13 +360,17 @@ class Qwen3TTSPipeline:
         QWEN3TTS_DECODE_CHUNK_SIZE / QWEN3TTS_DECODE_LEFT_CONTEXT)."""
         if len(frames) == 0:
             return np.zeros(0, np.float32)
-        wav = voc.chunked_decode(
-            self.vocoder_params, frames.T[None], self.speech_config.decoder_config,
-            device=self.device,
+        return sanitize_samples(self._chunked_decode(frames.T[None])[0])
+
+    def _chunked_decode(self, codes: np.ndarray, lengths: list[int] | None = None) -> np.ndarray:
+        """vocoder.chunked_decode of codes [B, nq, T] in 100-frame rows with
+        10 frames of context (or the QWEN3TTS_DECODE_* overrides)."""
+        return voc.chunked_decode(
+            self.vocoder_params, codes, self.speech_config.decoder_config, device=self.device,
             chunk_size=int(os.environ.get("QWEN3TTS_DECODE_CHUNK_SIZE", "100")),
             left_context=int(os.environ.get("QWEN3TTS_DECODE_LEFT_CONTEXT", "10")),
+            lengths=lengths,
         )
-        return sanitize_samples(wav[0])
 
     # -- generation modes --------------------------------------------------
 
@@ -413,6 +420,100 @@ class Qwen3TTSPipeline:
         return self.generate(text, speaker, reference_transcript=reference_transcript,
                              reference_audio_codes=reference_audio_codes,
                              temperature=temperature, max_tokens=max_tokens, seed=seed)
+
+    # -- batched serving ---------------------------------------------------
+
+    def _assemble_many(self, texts: list[str], speakers: list[str] | str):
+        """(prompts, their texts' indices) of the texts long enough to
+        prompt."""
+        if isinstance(speakers, str):
+            speakers = [speakers] * len(texts)
+        pds, keep = [], []
+        for i, (text, speaker) in enumerate(zip(texts, speakers)):
+            pd = self._assemble(text, speaker)
+            if pd is not None:
+                pds.append(pd)
+                keep.append(i)
+        return pds, keep
+
+    def generate_many(
+        self,
+        texts: list[str],
+        speakers: list[str] | str = "",
+        *,
+        temperature: float | None = None,
+        max_tokens: int | None = None,
+        seed: int = 0,
+    ) -> list[np.ndarray]:
+        """Serve several utterances concurrently (lockstep batched decode,
+        models/serving.py; text i draws with seed + i), then vocode every
+        stream in one batched chunked decode that skips rows past a
+        stream's frames. Greedy, each stream's codes are those of
+        generate_codes without the code predictor's repetition sets."""
+        pds, keep = self._assemble_many(texts, speakers)
+        outputs: list[np.ndarray] = [np.zeros(0, np.float32)] * len(texts)
+        if not pds:
+            return outputs
+        pc = self.pipeline_config
+        frames_list = srv.generate_codes_batched(
+            self.params, self.cp_params, self.config, pds,
+            temperature=temperature if temperature is not None else pc.default_temperature,
+            max_tokens=max_tokens if max_tokens is not None else pc.default_max_tokens,
+            seed=seed,
+        )
+        valid_list = [gen_mod.filter_valid_frames(f) for f in frames_list]
+        t_max = max(len(v) for v in valid_list)
+        if t_max == 0:
+            return outputs
+        nq = self.config.code_predictor_config.num_code_groups
+        codes = np.zeros((len(valid_list), nq, t_max), np.int32)
+        for j, v in enumerate(valid_list):
+            codes[j, :, : len(v)] = v.T
+        wav = self._chunked_decode(codes, lengths=[len(v) for v in valid_list])
+        for j, i in enumerate(keep):
+            outputs[i] = sanitize_samples(wav[j][: len(valid_list[j]) * self._samples_per_frame])
+        return outputs
+
+    def generate_many_stream(
+        self,
+        texts: list[str],
+        speakers: list[str] | str = "",
+        *,
+        temperature: float | None = None,
+        max_tokens: int | None = None,
+        batch_size: int = 8,
+        chunk_steps: int = 18,
+        first_decode_chunk: int | None = None,
+        seed: int = 0,
+    ) -> Iterator[tuple[int, AudioChunk]]:
+        """Streaming continuous batching: yields (text index, AudioChunk) as
+        audio becomes ready while decoding goes on. Up to batch_size
+        utterances decode in lockstep, finished slots admit queued texts
+        mid-flight, and the vocoder runs batched across streams on ready
+        18-frame rows (serving.ContinuousServer.serve_audio). Each text ends
+        with exactly one is_final chunk. first_decode_chunk (with a finer
+        chunk_steps) ships each stream's first audio after that many
+        frames."""
+        pds, keep = self._assemble_many(texts, speakers)
+        if not pds:
+            return
+        pc = self.pipeline_config
+        server = srv.ContinuousServer(
+            self.params, self.cp_params, self.config,
+            batch_size=min(batch_size, max(1, len(pds))),
+            prompt_bucket=gen_mod.pick_bucket(max(pd.input_embeds.shape[1] for pd in pds)),
+            trailing_bucket=gen_mod.pick_bucket(
+                max(pd.trailing_hidden.shape[1] for pd in pds), gen_mod.TRAILING_BUCKETS),
+            chunk_steps=chunk_steps, seed=seed,
+        )
+        for chunk in server.serve_audio(
+            pds, self.vocoder_params, self.speech_config.decoder_config,
+            temperature=temperature if temperature is not None else pc.default_temperature,
+            max_tokens=max_tokens if max_tokens is not None else pc.default_max_tokens,
+            first_decode_chunk=first_decode_chunk,
+        ):
+            yield keep[chunk.request], AudioChunk(sanitize_samples(chunk.samples),
+                                                  chunk.token_range, chunk.is_final)
 
     # -- streaming ---------------------------------------------------------
 
