@@ -81,7 +81,22 @@ non-zero):
                 4, 8 by graph and eagerly (wall, device, capture s, graph
                 pool bytes, frames/s), the graph against the eager step at
                 temperature 0 (same frames and state), and B = 8 against
-                B = 1 teacher-forced (TOL_BATCH)
+                B = 1 teacher-forced (TOL_BATCH, no code-0 flip outside a
+                near-tie); the `w8r` product against the fp32 product it
+                replaced (TF32 off) at the step's shapes, M = 8
+  service     - the always-on service over HTTP on localhost, on the same
+                model: server.serve(batch_size=8, warmup=True), then a burst
+                of 8 streamed requests at temperature 0, 4 staggered
+                arrivals into the running batch (one at 0.85), a client
+                that hangs up after its first audio, a /v1/audio/speech pcm
+                request and a /tts_many of 2 texts beside the busy service;
+                every response well formed, /stats identities after the
+                drain (one cancel, no failure, no restart), the graphs of
+                the service's keys unchanged by the traffic, K3-K6 and the
+                blocks' upsample launched and K1 / K2 not, each burst
+                stream teacher-forced against B = 1 on its own frames;
+                first PCM byte per request, serving RTF and frames/s over
+                the burst, warmup seconds
   k3-pipeline - the same with the megakernels off (every linear on K3);
                 then 16 lockstep steps at B = 8 from one graph (K3's
                 wrapper counts the warm-up and the capture, twice a step's
@@ -114,8 +129,9 @@ non-zero):
                 K2g's kernel, K4a and K7 not
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
-others, "launches_serving" on the serving runs: the wrappers' calls, eager
-and captured, not the graph replays) and the last is
+others, "launches_serving" on the serving runs and "launches_service" on
+the service's traffic: the wrappers' calls, eager and captured, not the
+graph replays) and the last is
 {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
@@ -128,11 +144,13 @@ the tensor cores, 1,979 TOP/s int8).
 
 from __future__ import annotations
 
+import base64
 import json
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1899,34 +1917,99 @@ def batch_vs_single(pl, card: str, frames) -> None:
     """B = 8 against B = 1, teacher-forced over the graph run's frames: the
     talker logits after each step of streams 0 and 6 (the shortest and the
     longest text) at B = 1 against the same stream's at B = 8."""
-    import torch
-
-    from qwen3_tts_tpu_torch.models import serving as srv
-
     valid = (frames[..., 0] >= 0).all(0)  # steps every stream emitted
     steps = int(valid.long().cumprod(0).sum())
     if steps < 4:
         raise SystemExit(f"[serving] only {steps} steps where every stream emitted")
     statics = _statics(pl, steps)
-    p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
     wide = _serving_state(pl, SERVE_TEXTS, statics)
     singles = {j: _serving_state(pl, SERVE_TEXTS[j:j + 1], statics) for j in (0, 6)}
+    held_against_single(pl, card, "serving", statics, wide, singles, frames[:, :steps])
+
+
+def _greedy_scores(state: dict, statics):
+    """The scores a greedy lockstep step takes its code 0 from (as
+    serving.lockstep_step: the eos / pad mask while text remains, the
+    repetition penalty on seen codes, the validity mask), [B, V] fp32."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.ops.sampling import NEG_INF
+
+    eos_pad_mask, valid_mask = gen_mod.step_masks(statics.config, state["logits"].device)
+    has_text = state["trailing_idx"] < state["total_texts"]
+    lg = (state["logits"] + torch.where(has_text[:, None], eos_pad_mask, 0.0)).float()
+    lg = lg / torch.where(state["seen_code0"], statics.repetition_penalty, 1.0)
+    # masked codes (NEG_INF added) as -inf, so they set no near-tie's scale
+    return torch.where(valid_mask & (lg > float(NEG_INF) / 2), lg, float("-inf"))
+
+
+def _near_tie(scores, a: int, w: int) -> bool:
+    """Scores a and w within NEAR_TIE of the largest finite score."""
+    import torch
+
+    top = float(scores[torch.isfinite(scores)].abs().max())
+    gap = float((scores[a] - scores[w]).abs())
+    return bool(torch.isfinite(scores[w])) and gap <= NEAR_TIE * top
+
+
+def held_against_single(pl, card: str, label: str, statics, wide, singles: dict, frames,
+                        emitted: bool = False) -> None:
+    """Steps the B = len(frames) state `wide` and the B = 1 states
+    `singles` (row -> state) eagerly, teacher-forced with frames [B, steps,
+    16], and holds each single's talker logits after every step against its
+    row of the wide ones: rel RMS <= TOL_BATCH, and a code-0 argmax that
+    differs only at a near-tie (the two scores within NEAR_TIE of the
+    largest score). `emitted` (greedy streams' own frames): also each
+    frame's code 0 against the greedy pick of its single's state before
+    that step, off only at a near-tie, so a frame the run computed or
+    routed wrongly fails."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
+    b, steps = frames.shape[:2]
     dev = wide["logits"].device
-    errs, flips = [], 0
+    errs, flips, ties = [], 0, 0
+    picks, misses, miss_ties = 0, [], 0
     for i in range(steps):
-        srv.lockstep_step(p, cp, wide, torch.zeros(8, device=dev), statics, False,
+        if emitted:
+            for j, one in singles.items():
+                sc = _greedy_scores(one, statics)[0]
+                a, got = int(torch.argmax(sc)), int(frames[j, i, 0])
+                picks += 1
+                if a != got:
+                    if _near_tie(sc, a, got):
+                        miss_ties += 1
+                    else:
+                        misses.append((j, i, got, a))
+        srv.lockstep_step(p, cp, wide, torch.zeros(b, device=dev), statics, False,
                           forced=frames[:, i])
         for j, one in singles.items():
             srv.lockstep_step(p, cp, one, torch.zeros(1, device=dev), statics, False,
                               forced=frames[j:j + 1, i])
-            errs.append(rel_rms(one["logits"][0], wide["logits"][j]))
-            flips += int(torch.argmax(one["logits"][0]) != torch.argmax(wide["logits"][j]))
+            lg = one["logits"][0]
+            errs.append(rel_rms(lg, wide["logits"][j]))
+            a, w = int(torch.argmax(lg)), int(torch.argmax(wide["logits"][j]))
+            if a != w:
+                if _near_tie(lg, a, w):
+                    ties += 1
+                else:
+                    flips += 1
     worst = max(errs)
-    log(f"[serving] B=8 vs B=1 teacher-forced over {steps} steps, streams 0 and 6: talker "
-        f"logits rel RMS max {worst:.3e} mean {float(np.mean(errs)):.3e} (tol {TOL_BATCH:g}), "
-        f"code-0 argmax flips {flips}/{len(errs)} ({card}, bf16)")
-    if not worst <= TOL_BATCH:
-        raise SystemExit("the B = 8 lockstep step disagrees with B = 1")
+    log(f"[{label}] B={b} vs B=1 teacher-forced over {steps} steps, streams "
+        f"{sorted(singles)}: talker logits rel RMS max {worst:.3e} mean "
+        f"{float(np.mean(errs)):.3e} (tol {TOL_BATCH:g}), code-0 argmax flips {flips} "
+        f"(+{ties} at near-ties) of {len(errs)} ({card}, bf16)")
+    if emitted:
+        log(f"[{label}] emitted code 0 against the B=1 greedy pick before its step: "
+            f"{len(misses)} off (+{miss_ties} at near-ties) of {picks}"
+            + (f"; first (row, step, emitted, pick): {misses[:4]}" if misses else ""))
+    if not worst <= TOL_BATCH or flips:
+        raise SystemExit(f"[{label}] the B = {b} lockstep step disagrees with B = 1")
+    if misses:
+        raise SystemExit(f"[{label}] the emitted frames disagree with the B = 1 greedy picks")
 
 
 def phase_serving(pl, card: str):
@@ -2022,9 +2105,332 @@ def phase_serving(pl, card: str):
                 f"{g.capture_s:.3f} s, pool {g.pool_bytes} bytes")
     log(f"[{label}] graphs captured in the counted run: "
         f"{sum(len(v) for v in pool.values()) - graphs_before}")
+    m["w8r_product"] = w8r_product(pl, card)
     m["steps"] = step_times(pl, card, label)
     frames = graph_vs_eager(pl, card)
     batch_vs_single(pl, card, frames)
+    return launches, m
+
+
+# The `w8r` product against the fp32 product it replaced, and with TF32
+# allowed against not: exact operands, so only fp32 sum order separates
+# them (1.4-2.5e-7 on the card); a product that dropped x's third bf16 part
+# would be off by ~2^-17 (8e-6), one rounded to TF32 by ~1e-3
+TOL_W8R = 1e-6
+
+
+def w8r_product(pl, card: str) -> dict:
+    """The `w8r` product (fp32 GEMMs of bf16-valued parts; no precision
+    flag read or written) against the product it replaced (the fp32 GEMM
+    of x, TF32 off as main() sets it) at a lockstep step's shapes, M = 8:
+    talker layer 0's linears, the codec head and the code predictor's
+    layer 0 on bf16 x (one part, the same GEMM: bit for bit), and its
+    group-0 lm head on fp32 x (three parts). Then, on every shape, fp32 x
+    that is not bf16-valued (three parts), against the old product and
+    with TF32 allowed against without, compared before any bf16 rounding.
+    Prints each shape's rel RMS and both times (CUDA events); fails past
+    TOL_W8R. Returns the worst rel RMS of each comparison and the summed
+    times."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import talker as talker_mod
+    from qwen3_tts_tpu_torch.ops import linear as lin
+
+    def old(entry, x):
+        q = entry["w8r"]
+        y = torch.matmul(x.float(), q.float().transpose(-1, -2))
+        return (y * entry["s"][0].float() + entry["m"][0].float()
+                * x.float().sum(-1, keepdim=True)).to(x.dtype)
+
+    cases = [(f"talker {k}", e, torch.bfloat16)
+             for k, e in talker_mod._layer(pl.params["layers"], 0).items() if "w8r" in e]
+    cases.append(("codec head", pl.params["codec_head"], torch.bfloat16))
+    cases += [(f"cp {k}", e, torch.bfloat16)
+              for k, e in talker_mod._layer(pl.cp_params["layers"], 0).items() if "w8r" in e]
+    cases.append(("cp lm_head[0]", {k: v[0] for k, v in pl.cp_params["lm_head"].items()},
+                  torch.float32))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {"vs_old": 0.0, "fp32_vs_old": 0.0, "tf32_on": 0.0, "ms": 0.0, "old_ms": 0.0}
+    for name, entry, dt in cases:
+        k = entry["w8r"].shape[1]
+        x = torch.randn(8, 1, k, device="cuda", generator=gen).to(dt)
+        err = rel_rms(lin._w8r_linear(entry, x).float(), old(entry, x).float())
+        xf = torch.randn(8, 1, k, device="cuda", generator=gen)
+        exact = lin._w8r_linear(entry, xf)
+        err32 = rel_rms(exact, old(entry, xf))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = rel_rms(lin._w8r_linear(entry, xf), exact)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        (ms, how), (oms, ohow) = (time_ms(lambda: lin._w8r_linear(entry, x), 50),
+                                  time_ms(lambda: old(entry, x), 50))
+        for key, v in (("vs_old", err), ("fp32_vs_old", err32), ("tf32_on", tf32)):
+            out[key] = max(out[key], v)
+        out["ms"] += ms
+        out["old_ms"] += oms
+        log(f"[serving] w8r product {name} {tuple(entry['w8r'].shape)} x {dt}: rel RMS "
+            f"against the fp32 (TF32 off) product {err:.3e}; fp32 x (not bf16-valued): "
+            f"against it {err32:.3e}, TF32 allowed against not {tf32:.3e}; {ms:.4f} ms "
+            f"({how}) against {oms:.4f} ms ({ohow}) ({card})")
+    log(f"[serving] w8r product: worst rel RMS against the old product {out['vs_old']:.3e} "
+        f"(fp32 x not bf16-valued: {out['fp32_vs_old']:.3e}), TF32 allowed against not "
+        f"{out['tf32_on']:.3e} (tol {TOL_W8R:g}); summed {out['ms']:.4f} ms against "
+        f"{out['old_ms']:.4f} ms at M = 8 ({card})")
+    if not max(out["vs_old"], out["fp32_vs_old"], out["tf32_on"]) <= TOL_W8R:
+        raise SystemExit("the w8r product disagrees with the fp32 product")
+    return out
+
+
+# The service phase: a burst of 8 requests of BURST_TOKENS frames each (the
+# serving cell's 96) into the idle batch; then, while two long requests
+# keep the batch running, 4 staggered arrivals (one sampled), a client that
+# hangs up after its first audio, an OpenAI-style pcm request and a
+# /tts_many of 2 texts. Each text's
+# trailing tokens fit the service's default trailing bucket (64) with the
+# test model dir's character-level tokenizer
+SERVICE_TEXTS = (
+    "Good morning.",
+    "The train leaves at half past nine.",
+    "Please water the plants tonight.",
+    "A short one.",
+    "The quick brown fox jumps over the dog.",
+    "Numbers like twelve are read in full.",
+    "The museum opens its new wing next week.",
+    "Thank you, we will be with you shortly.",
+)
+BURST_TOKENS = 96
+LATE_TEXTS = ("A late arrival takes a freed slot.", "A sampled request joins later.",
+              "The third late arrival.", "Last of the late arrivals.")
+
+
+def _http_client(port: int, path: str, body: dict, out: dict, hang_up: bool = False) -> None:
+    """POST `body`; records status, headers, the whole body, and the time
+    to the first PCM byte (after a WAV header of a streamed wav). hang_up:
+    close the socket right after the first PCM byte."""
+    import http.client
+    import socket
+
+    t0 = time.perf_counter()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        out.update(status=r.status, headers={k.lower(): v for k, v in r.getheaders()})
+        streamed = out["headers"].get("transfer-encoding") == "chunked"
+        head = r.read(44) if streamed and out["headers"].get("content-type") == "audio/wav" else b""
+        first = r.read(1)
+        out["first_s"] = time.perf_counter() - t0
+        if hang_up:
+            conn.sock.shutdown(socket.SHUT_RDWR)
+            conn.close()
+            out["body"] = head + first
+            return
+        out["body"] = head + first + r.read()
+        out["end"] = time.perf_counter()
+        conn.close()
+    except Exception as e:  # checked by the caller
+        out["error"] = f"{type(e).__name__}: {e}"
+
+
+def _pcm_ok(data: bytes, spf: int) -> tuple[bool, int]:
+    """(whole frames of finite, non-silent 16-bit PCM, sample count)."""
+    pcm = np.frombuffer(data, np.int16) if len(data) % 2 == 0 else np.zeros(0, np.int16)
+    return bool(len(pcm) and len(pcm) % spf == 0 and np.abs(pcm).max() > 0), len(pcm)
+
+
+def phase_service(pl, card: str):
+    """The always-on service over HTTP on localhost (server.serve at B = 8,
+    warmup=True): a burst of 8 streamed requests at temperature 0 into the
+    idle batch; then, while two long requests keep the batch running, 4
+    staggered arrivals (one at 0.85), a client that hangs up after its
+    first audio, an OpenAI-style pcm request and a /tts_many of 2 texts
+    beside the busy service. Checks every
+    response, the /stats identities after the drain, that the traffic
+    captured no graph of the service's keys, the launch counts, and each
+    greedy burst stream teacher-forced against B = 1 on its own frames (a
+    smoke tool records them: a wrapped filter_valid_frames hands the
+    service worker's raw frames to a recording _RowPacker). Returns (launch
+    counts of the traffic, metrics)."""
+    import http.client
+
+    import torch
+
+    from qwen3_tts_tpu_torch import server
+    from qwen3_tts_tpu_torch.io.wav import streaming_wav_header
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import serving as srv
+
+    label, spf, m = "service", pl._samples_per_frame, {}
+    raw, last = {}, {}
+    filt, packer_cls = gen_mod.filter_valid_frames, srv._RowPacker
+
+    def recording_filter(frames):
+        last[threading.get_ident()] = frames
+        return filt(frames)
+
+    class RecordingPacker(packer_cls):
+        def feed(self, key, valid, done):
+            raw.setdefault(key, []).append(last.pop(threading.get_ident()))
+            return super().feed(key, valid, done)
+
+    gen_mod.filter_valid_frames, srv._RowPacker = recording_filter, RecordingPacker
+    httpd = None
+    try:
+        pool = srv.graphs(pl.params)
+        keys_before = set(pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        httpd = server.serve(pl, port=0, batch_size=8, warmup=True)
+        warm_s = time.perf_counter() - t0
+        svc, port = httpd.tts_service, httpd.server_address[1]
+        ours = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
+                if k[4] == svc.statics}
+        log(f"[{label}] serve(batch_size=8, warmup=True): {warm_s:.2f} s; graphs of the "
+            f"service's keys: " + ", ".join(f"B={k[0]} capacity={k[1]} trailing={k[2]} "
+                                            f"sampled={k[5]} captured in {gs[0][1]:.3f} s"
+                                            for k, gs in ours.items())
+            + f"; {len(set(pool) - keys_before)} keys new in the warmup ({card})")
+        if sorted(k[5] for k in ours) != [False, True] or any(len(v) != 1 for v in ours.values()):
+            raise SystemExit(f"[{label}] warmup left graphs {ours}; expected one greedy and "
+                             "one sampled")
+        keys_warm = set(pool)
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = {}
+
+        def go(name, path, body, **kw):
+            outs[name] = {}
+            th = threading.Thread(target=_http_client, args=(port, path, body, outs[name]),
+                                  kwargs=kw)
+            th.start()
+            return th
+
+        # the burst alone, into the idle batch
+        t_burst = time.perf_counter()
+        threads = [go(f"burst{i}", "/tts?stream=1", {
+            "text": SERVICE_TEXTS[i], "speaker": "aiden", "temperature": 0.0,
+            "max_tokens": BURST_TOKENS, "seed": 100 + i}) for i in range(8)]
+        for th in threads:
+            th.join(timeout=600)
+        # two long requests keep the batch running; once they decode, the
+        # staggered arrivals, a hang-up, /v1 and /tts_many
+        threads = [go(f"carrier{i}", "/tts?stream=1", {
+            "text": SERVICE_TEXTS[4 + i], "speaker": "aiden", "temperature": 0.0,
+            "max_tokens": 120, "seed": 400 + i}) for i in range(2)]
+        t_carrier = time.perf_counter()
+        while (not all("first_s" in outs[f"carrier{i}"] or "error" in outs[f"carrier{i}"]
+                       for i in range(2)) and time.perf_counter() - t_carrier < 120):
+            time.sleep(0.005)
+        for i, text in enumerate(LATE_TEXTS):
+            threads.append(go(f"late{i}", "/tts?stream=1", {
+                "text": text, "speaker": "aiden", "temperature": 0.85 if i == 1 else 0.0,
+                "max_tokens": 48, "seed": 200 + i}))
+            if i == 0:
+                threads.append(go("hangup", "/tts?stream=1", {
+                    "text": SERVICE_TEXTS[6], "speaker": "aiden", "temperature": 0.0,
+                    "max_tokens": 240, "seed": 300}, hang_up=True))
+                threads.append(go("speech_pcm", "/v1/audio/speech", {
+                    "input": SERVICE_TEXTS[2], "voice": "aiden", "response_format": "pcm",
+                    "temperature": 0.0, "max_tokens": 36, "seed": 301}))
+                threads.append(go("tts_many", "/tts_many", {
+                    "texts": [SERVICE_TEXTS[1], SERVICE_TEXTS[3]], "speaker": "aiden",
+                    "temperature": 0.0, "max_tokens": 36, "batch_size": 2, "seed": 302}))
+            time.sleep(0.3)
+        for th in threads:
+            th.join(timeout=600)
+        deadline = time.perf_counter() + 120
+        while True:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            conn.request("GET", "/stats")
+            stats = json.loads(conn.getresponse().read())
+            conn.close()
+            done = stats["requests_completed"] + stats["requests_failed"] + stats[
+                "requests_cancelled"]
+            if done == stats["requests_submitted"] or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        gen_mod.filter_valid_frames, srv._RowPacker = filt, packer_cls
+        if httpd is not None:
+            httpd.shutdown()
+    log(f"[{label}] /stats after the drain: {json.dumps(stats)}")
+    bad = [n for n, o in outs.items() if "error" in o or o.get("status") != 200]
+    if bad:
+        raise SystemExit(f"[{label}] requests failed: {[(n, outs[n]) for n in bad]}")
+    # well-formed responses
+    header = streaming_wav_header(pl.sample_rate)
+    burst_audio_s, burst_frames, firsts = 0.0, 0, []
+    for name, o in outs.items():
+        h = o["headers"]
+        if name == "tts_many":
+            wavs = json.loads(o["body"])["wavs"]
+            pcm = [base64.b64decode(w)[44:] for w in wavs]
+            ok = len(wavs) == 2 and all(_pcm_ok(x, spf)[0] for x in pcm)
+        elif name == "speech_pcm":
+            ok = h.get("content-type") == "audio/pcm" and _pcm_ok(o["body"], spf)[0]
+        elif name == "hangup":
+            ok = o["body"][:44] == header and len(o["body"]) == 45
+        else:
+            ok = (h.get("transfer-encoding") == "chunked" and o["body"][:44] == header
+                  and _pcm_ok(o["body"][44:], spf)[0])
+            if name.startswith("burst"):
+                n = _pcm_ok(o["body"][44:], spf)[1]
+                burst_audio_s += n / pl.sample_rate
+                burst_frames += n // spf
+                firsts.append(o["first_s"])
+        if not ok:
+            raise SystemExit(f"[{label}] {name}: malformed response {h} "
+                             f"({len(o.get('body', b''))} bytes)")
+    m["warmup_s"] = warm_s
+    m["burst_first_audio_s"] = firsts
+    m["late_first_audio_s"] = [outs[f"late{i}"]["first_s"] for i in range(4)]
+    burst_s = max(outs[f"burst{i}"]["end"] for i in range(8)) - t_burst
+    m["burst_rtf"] = burst_s / burst_audio_s
+    m["burst_frames_per_s"] = burst_frames / burst_s
+    log(f"[{label}] burst of 8 streamed requests into the idle batch (T=0, max_tokens "
+        f"{BURST_TOKENS}): "
+        f"{burst_s:.3f} s for {burst_audio_s:.2f} s of audio, serving RTF "
+        f"{m['burst_rtf']:.4f}, {m['burst_frames_per_s']:.1f} frames/s; first PCM byte "
+        f"over HTTP per request (s): " + ", ".join(f"{x:.3f}" for x in firsts)
+        + f" ({card}, bf16)")
+    log(f"[{label}] staggered arrivals into the running batch (two requests of 120 frames "
+        f"decoding): first PCM byte (s): "
+        + ", ".join(f"{x:.3f}" for x in m["late_first_audio_s"])
+        + f"; hang-up after {outs['hangup']['first_s']:.3f} s ({card}, bf16)")
+    # the drain and its identities
+    ident = stats["requests_submitted"] == (stats["requests_completed"]
+                                            + stats["requests_failed"]
+                                            + stats["requests_cancelled"])
+    if (not ident or stats["worker_restarts"] or stats["requests_failed"]
+            or stats["requests_cancelled"] != 1):
+        raise SystemExit(f"[{label}] /stats after the drain breaks its identities: {stats}")
+    # no capture of the service's keys after warmup; /tts_many's own keys
+    after = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
+             if k[4] == svc.statics}
+    new = {k: len(pool[k]) for k in set(pool) - keys_warm}
+    log(f"[{label}] graphs of the service's keys after the traffic: "
+        f"{'unchanged' if after == ours else 'CHANGED'}; keys captured by /tts_many beside "
+        f"it: {[(k[0], k[1], k[2], k[5], n) for k, n in new.items()]}")
+    if after != ours or any(k[4] == svc.statics or n != 1 for k, n in new.items()):
+        raise SystemExit(f"[{label}] the traffic captured a lockstep graph of the service")
+    check_counts(label, launches, need=("int8_matmul", "pre_transformer", "upsample_stage",
+                                        "residual_units", "block_upsample"),
+                 idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
+                       "pre_transformer_fused"))
+    # each greedy burst stream, teacher-forced against B = 1
+    burst = sorted((r for r in raw if 100 <= getattr(r, "seed", -1) < 108), key=lambda r: r.seed)
+    if len(burst) != 8:
+        raise SystemExit(f"[{label}] recorded {len(burst)} burst streams of 8")
+    streams = [np.concatenate(raw[r]) for r in burst]
+    steps = min(8, min(len(f) for f in streams))
+    frames = torch.from_numpy(np.stack([f[:steps] for f in streams]).astype(np.int64)).cuda()
+    wide = svc._prefill_bootstrap(dict(enumerate(burst)))
+    singles = {j: svc._prefill(r) for j, r in enumerate(burst)}
+    held_against_single(pl, card, label, svc.statics, wide, singles, frames, emitted=True)
     return launches, m
 
 
@@ -2180,6 +2586,7 @@ def main() -> int:
         vocoder_windows(pl, card)
         profile_frames(pl, "pipeline", card)
         launches["serving"], results["serving"] = phase_serving(pl, card)
+        launches["service"], results["service"] = phase_service(pl, card)
         del pl
         torch.cuda.empty_cache()
 
@@ -2257,6 +2664,7 @@ def main() -> int:
         for path in ("k3_path", "mixed", "prequant", "modes"):
             row[f"launches_{path}"] = launches[path][name]
         row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
+        row["launches_service"] = launches["service"][name]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ qwen3_tts_tpu/models/prompt.py::assemble_prompt, every mode):
 where codecEmbed = [nothink, think_bos, think_eos, speaker?, pad, bos] and
 the speaker slot holds a built-in speaker's codec embedding or a speaker
 embedding (unprojected). The trailing text hidden = proj(embed(text tokens
-4..N-6)) ⧺ tts_eos is fed one embed per decode step. Prompts are
-exact-length (no buckets).
+4..N-6)) ⧺ tts_eos is fed one embed per decode step. assemble_prompt gives
+exact-length prompts; assemble_prompt_padded gives them padded to the
+serving buckets (the submit path of service.py), with the real lengths in
+PromptData.p / .t.
 """
 
 from __future__ import annotations
@@ -30,6 +32,25 @@ class PromptData:
     input_embeds: torch.Tensor     # [1, P, H]
     trailing_hidden: torch.Tensor  # [1, T, H]
     tts_pad_embed: torch.Tensor    # [1, 1, H]
+    # set by assemble_prompt_padded: the tensors above are bucket-padded and
+    # these are the real lengths (None: the tensors are exact-length)
+    p: int | None = None
+    t: int | None = None
+
+
+def pd_lengths(pd: PromptData) -> tuple[int, int]:
+    """(prompt, trailing) row counts, padded and exact-length alike."""
+    p = pd.p if pd.p is not None else int(pd.input_embeds.shape[1])
+    t = pd.t if pd.t is not None else int(pd.trailing_hidden.shape[1])
+    return p, t
+
+
+def _ids(vals, dev: torch.device) -> torch.Tensor:
+    """int64 ids on `dev`. On CUDA through pinned memory, non-blocking: a
+    pageable copy would wait for all the stream's queued work (a decode
+    chunk in flight on the serving path)."""
+    t = torch.as_tensor(np.asarray(vals, np.int64))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
 def _user_turn(params: dict, tokenizer, text: str, t) -> torch.Tensor:
@@ -60,13 +81,15 @@ def assemble_prompt(
     speaker_id = config.spk_id.get(speaker.lower())
     dev = params["norm"]["w"].device
     chat_text = f"<|im_start|>assistant\n{text}<|im_end|>\n<|im_start|>assistant\n"
-    ids = torch.tensor(tokenizer.encode(chat_text), dtype=torch.int64, device=dev)
-    n = len(ids)
+    chat_ids = tokenizer.encode(chat_text)
+    n = len(chat_ids)
     if n < MIN_PROMPT_TOKENS:
         return None
 
     def t(vals):
-        return torch.as_tensor(np.asarray(vals, np.int64), device=dev)
+        return _ids(vals, dev)
+
+    ids = t(chat_ids)
 
     tts = talker_mod.encode_text(
         params, t([config.tts_bos_token_id, config.tts_eos_token_id, config.tts_pad_token_id])
@@ -119,3 +142,31 @@ def assemble_prompt(
     else:
         trailing_hidden = tts_eos
     return PromptData(input_embeds, trailing_hidden, tts_pad)
+
+
+def assemble_prompt_padded(params: dict, config: Qwen3TTSConfig, tokenizer, text: str, *,
+                           prompt_bucket: int, trailing_bucket: int,
+                           **kwargs) -> PromptData | None:
+    """assemble_prompt's prompt padded with zeros to the serving buckets
+    ([1, prompt_bucket, H], [1, trailing_bucket, H]) with p / t set; None
+    for too-short text. A prompt over the buckets comes back exact-length,
+    so the caller's bucket check reports its real lengths. Every mode goes
+    through assemble_prompt, so the real rows equal its rows bit for bit."""
+    return _pad_prompt_data(assemble_prompt(params, config, tokenizer, text, **kwargs),
+                            prompt_bucket, trailing_bucket)
+
+
+def _pad_prompt_data(pd: PromptData | None, pb: int, tb: int) -> PromptData | None:
+    """An exact-length prompt padded with zeros to the buckets; unchanged
+    when it does not fit (the caller's bucket check reports it)."""
+    if pd is None:
+        return None
+    p, t = pd.input_embeds.shape[1], pd.trailing_hidden.shape[1]
+    if p > pb or t > tb:
+        return pd
+    e, tr = pd.input_embeds, pd.trailing_hidden
+    embeds = torch.zeros(1, pb, e.shape[2], dtype=e.dtype, device=e.device)
+    trailing = torch.zeros(1, tb, tr.shape[2], dtype=tr.dtype, device=tr.device)
+    embeds[:, :p] = e
+    trailing[:, :t] = tr
+    return PromptData(embeds, trailing, pd.tts_pad_embed, p=p, t=t)

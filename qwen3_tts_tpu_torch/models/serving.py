@@ -14,11 +14,14 @@ CUDA every step is the replay of one CUDA graph (LockstepGraph), captured
 at the first use of its key (batch width, ring capacity, trailing bucket,
 GenStatics, greedy or sampled) over static state buffers; `bind` copies a
 state into a graph's buffers, and admission and parking then write those
-buffers in place. A failed capture raises. The CPU runs the same step
-eagerly. The megakernels are B = 1 launches, so the batched path drops
-params["kernel"] (as the JAX package does) and runs the layer-by-layer
-linears at M = B: K3 on int8 entries, K7 on packed ones, the `w8r`
-product on the megakernels' shared rowwise weights.
+buffers in place. A failed capture raises. `bind` leases a graph to one
+state at a time under one lock, so callers on several threads (a service
+worker and a request thread) never share buffers, and captures outside it,
+one capture at a time; `capture` captures a key ahead of traffic. The CPU
+runs the same step eagerly. The megakernels are B = 1 launches, so the
+batched path drops params["kernel"] (as the JAX package does) and runs the
+layer-by-layer linears at M = B: K3 on int8 entries, K7 on packed ones,
+the `w8r` product on the megakernels' shared rowwise weights.
 
 Draws: a stream's Gumbel noise is K2g's Philox formula keyed by the
 request's seed, with counter (v // 4, group, the stream's own step)
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import threading
 import time
 import weakref
 
@@ -380,6 +384,13 @@ class LockstepGraph:
         def step():
             lockstep_step(params, cp_params, self.buffers, self.temps, statics, sampled)
 
+        # The capture runs on a stream of its own, in thread-local error
+        # mode: CUDA then forbids unsafe calls (a sync, an allocation) only
+        # on this thread while it captures, and other threads' work (a
+        # puller's event waits and pinned copies, a submitter's prompt
+        # assembly, another batch's replays) goes on beside it on their own
+        # streams and is not recorded. The default (global) mode would fail
+        # the capture, or those threads' calls, whenever they overlap.
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -391,7 +402,7 @@ class LockstepGraph:
         before, reserved = _counts(), torch.cuda.memory_reserved()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
             step()
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
@@ -434,12 +445,52 @@ def graph_key(cp_params: dict, state: dict, statics, sampled: bool) -> tuple:
             id(cp_params["norm"]["w"]))
 
 
+# _LOCK guards every pool's lookup, lease and growth: a graph is leased to
+# one state at a time. It is never held during a capture, so a bind of a
+# captured key (a service worker's, switching between its greedy and
+# sampled graphs) never waits for another thread's capture. _CAPTURE_LOCK
+# lets one capture run at a time, and a key is captured only when, with
+# it held, none of the key's graphs is free. The release (a finalizer,
+# which may run inside either lock on the thread holding it) is one
+# attribute store and takes no lock. Lock order: _CAPTURE_LOCK, then _LOCK.
+_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _lease(pool: list):
+    """A free graph of `pool`, leased; None if none is free. Under _LOCK."""
+    g = next((x for x in pool if x.free), None)
+    if g is not None:
+        g.free = False
+    return g
+
+
+def capture(params: dict, cp_params: dict, template: dict, statics, sampled: bool):
+    """Capture a graph of `template`'s key unless the pool already holds
+    one, ahead of traffic (a service's warmup captures every key it can
+    reach, so its traffic never captures). Returns the pool's first graph
+    of the key. CUDA only."""
+    params, cp_params = _drop_kernel(params), _drop_kernel(cp_params)
+    key = graph_key(cp_params, template, statics, sampled)
+    with _CAPTURE_LOCK:
+        with _LOCK:
+            pool = graphs(params).setdefault(key, [])
+            if pool:
+                return pool[0]
+        g = LockstepGraph(params, cp_params, template, statics, sampled, key)
+        with _LOCK:
+            pool.append(g)
+        return g
+
+
 def bind(params: dict, cp_params: dict, state: dict, statics, sampled: bool) -> ServingState:
     """On CUDA, `state` as a ServingState over the static buffers of a
     graph of its key (its values copied in), captured now if no free graph
     of that key exists. The graph is leased to the returned state until
     that state is dropped. Use the returned state from here on. On the CPU
-    `state` comes back unchanged."""
+    `state` comes back unchanged. The copy is queued on the caller's
+    current stream, behind the work that made `state`; a state's replays
+    and in-place edits must stay on that stream."""
     if not state["logits"].is_cuda:
         return state if isinstance(state, ServingState) else ServingState(state)
     params, cp_params = _drop_kernel(params), _drop_kernel(cp_params)
@@ -447,13 +498,19 @@ def bind(params: dict, cp_params: dict, state: dict, statics, sampled: bool) -> 
     g = getattr(state, "graph", None)
     if g is not None and g.key == key:
         return state
-    pool = graphs(params).setdefault(key, [])
-    g = next((x for x in pool if x.free), None)
+    with _LOCK:
+        pool = graphs(params).setdefault(key, [])
+        g = _lease(pool)
     if g is None:
-        g = LockstepGraph(params, cp_params, state, statics, sampled, key)
-        pool.append(g)
+        with _CAPTURE_LOCK:
+            with _LOCK:  # freed while this thread waited for the capture lock?
+                g = _lease(pool)
+            if g is None:
+                g = LockstepGraph(params, cp_params, state, statics, sampled, key)
+                g.free = False
+                with _LOCK:
+                    pool.append(g)
     _copy_into(g.buffers, state)
-    g.free = False
     out = ServingState(g.buffers, graph=g)
     weakref.finalize(out, setattr, g, "free", True)
     return out

@@ -17,12 +17,17 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 _LIB = None
+# held by every wrapper while it adds to its launch count: the service's
+# threads launch kernels side by side, and `launches += 1` is a read and a
+# write
+COUNT_LOCK = threading.Lock()
 
 
 def build_dir() -> str:

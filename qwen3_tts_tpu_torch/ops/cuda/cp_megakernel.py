@@ -340,7 +340,8 @@ def predict_frame_kernel(kp, code_hidden, code0_embed, seed, temperature, seen_c
     )
     _build.check(_build.lib().qt_cp_frame(ctypes.addressof(args), _build.stream()),
                  "qt_cp_frame")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return codes, esum, seen_cp
 
 

@@ -172,7 +172,8 @@ def gumbel_sample_kernel(logits: torch.Tensor, seed: torch.Tensor, temperature: 
         codes.data_ptr(), _build.stream(),
     )
     _build.check(rc, "qt_gumbel_sample")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return codes
 
 

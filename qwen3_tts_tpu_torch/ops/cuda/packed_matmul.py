@@ -70,7 +70,8 @@ def packed_matmul_kernel(
         _build.ptr(part), _build.ptr(cnt), _build.stream(),
     )
     _build.check(rc, "qt_packed_matmul")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return y
 
 

@@ -300,7 +300,8 @@ def pre_transformer_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
     _build.require(kp["inv_freq"], "inv_freq", dtype=torch.float32, shape=(hd // 2,))
     if kp["wqkv"].dtype == torch.bfloat16:
         out = _pre_transformer_persistent(kp, x, nh=nh, hd=hd, eps=eps)
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
         return out
     if d3 != 3 * d or hd % 32 or hd > 128:
         raise ValueError(f"pre-transformer kernel: nh={nh}, hd={hd} do not fit "
@@ -337,7 +338,8 @@ def pre_transformer_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
         _build.gemm(g, mm, kp["wd"][l], h, res=h, scale=kp["lsm"][l])
     rms(h, kp["fnorm"])
     _build.gemm(g, xn, kp["wout"], out, bias=kp["bout"])
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out.reshape(b, t, lat)
 
 
@@ -480,7 +482,8 @@ def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
     _build.require(kp["inv_freq"], "inv_freq", dtype=torch.float32, shape=(hd // 2,))
     if wdt == torch.bfloat16:
         out = _pre_transformer_persistent(kp, x, nh=nh, hd=hd, eps=eps)
-        fused_launches += 1
+        with _build.COUNT_LOCK:
+            fused_launches += 1
         return out
     if hd not in (64, 128):
         raise ValueError(f"K4a with fp32 weights: hd={hd} (hd 64 or 128)")
@@ -521,7 +524,8 @@ def pre_transformer_fused_kernel(kp: dict, x: torch.Tensor, *, nh: int, hd: int,
         _build.gemm(gm, mm, kp["wd"][l], h, res=h, scale=kp["lsm"][l].reshape(-1))
     rms(h, kp["fnorm"].reshape(-1))
     _build.gemm(gm, xn, kp["wout"], out, bias=kp["bout"].reshape(-1))
-    fused_launches += 1
+    with _build.COUNT_LOCK:
+        fused_launches += 1
     return out.reshape(b, t, lat)
 
 

@@ -56,7 +56,8 @@ def int8_matmul_kernel(
         _build.ptr(cnt), _build.stream(),
     )
     _build.check(rc, "qt_int8_matmul")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return y
 
 

@@ -161,7 +161,8 @@ def talker_step_kernel(tkp, embed, cache2, position, window_start, cos, sin, con
     )
     _build.check(_build.lib().qt_talker_step(ctypes.addressof(args), _build.stream()),
                  "qt_talker_step")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return h_out.reshape(1, 1, hc), logits, cache2
 
 

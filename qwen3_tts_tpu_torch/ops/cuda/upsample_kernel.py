@@ -262,7 +262,8 @@ def upsample_stage_kernel(kp: dict, x: torch.Tensor, *,
     _build.require(kp["dw"], "dw", dtype=torch.float32, shape=(7, c))
     if kp["up_w"].dtype == torch.bfloat16:
         out = _stage_persistent(kp, x, stamps)
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
         return out
     rows2 = b * 2 * t
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -286,7 +287,8 @@ def upsample_stage_kernel(kp: dict, x: torch.Tensor, *,
         out = torch.empty((rows2, kp["ic_w"].shape[1]), dtype=x.dtype, device=x.device)
         _build.gemm(g, o, kp["ic_w"], out, seq=2 * t, taps=7, bias=kp["ic_b"])
         o = out
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return o.reshape(b, 2 * t, -1)
 
 

@@ -202,7 +202,8 @@ def residual_units_kernel(kp: dict, y: torch.Tensor) -> torch.Tensor:
         _build.require(kp[name], name, dtype=torch.float32, shape=(3, c))
     if kp["u_w1"].dtype == torch.bfloat16:
         out = _units_mma(kp, y)
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
         return out
     rows = b * s
     tail = "t_w" in kp
@@ -218,7 +219,8 @@ def residual_units_kernel(kp: dict, y: torch.Tensor) -> torch.Tensor:
         _build.gemm(g, h, kp["u_w2"][u], dst, alpha=kp["u_a2"][u],
                     binv=kp["u_binv2"][u], bias=kp["u_b2"][u], res=cur)
         cur = dst
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     if tail:
         wav = torch.empty((rows, 1), dtype=torch.float32, device=y.device)
         _build.gemm(g, cur, kp["t_w"], wav, seq=s, taps=7, alpha=kp["t_a"],
@@ -277,7 +279,8 @@ def block_upsample_kernel(kp: dict, x: torch.Tensor, *, rate: int) -> torch.Tens
     else:
         _build.gemm("qt_units_gemm", x.reshape(rows, cin), kp["up_w"], out, seq=t, taps=2,
                     alpha=kp["snake_a"], binv=kp["snake_binv"], bias=kp["up_b"])
-    upsample_launches += 1
+    with _build.COUNT_LOCK:
+        upsample_launches += 1
     return out.reshape(b, t * rate, n // rate)
 
 

@@ -14,8 +14,9 @@ Param dict conventions (as in qwen3_tts_tpu/ops/linear.py):
 Stacked table sets carry a leading group axis. int8 linears and stacked
 lm_heads go through the K3 kernel (ops/cuda/quant_matmul.py) on the card,
 packed ones through K7 (ops/cuda/packed_matmul.py); `w8r` entries are plain
-large products (torch.matmul in fp32 on the int8 values, with the dequant
-folded into the output: y*s + m*sum(x)). Table lookups gather the
+large products (fp32 GEMMs of bf16-valued operands, exact whether or not
+TF32 is allowed, _w8r_linear, with the dequant folded into the output:
+y*s + m*sum(x)). Table lookups gather the
 requested rows and dequantize only those, in torch.
 """
 
@@ -28,20 +29,31 @@ from .cuda.quant_matmul import int8_matmul
 from .quant import dequantize_torch, derive_packed_dims
 
 
+def _bf16_parts(x: torch.Tensor) -> torch.Tensor:
+    """[3, ..., K] fp32 parts of fp32 x, each bf16-valued, that sum to x
+    exactly: each takes the next 8 bits of the 24-bit significand, and
+    each remainder is exact in fp32."""
+    hi = x.bfloat16().float()
+    r = x - hi
+    mid = r.bfloat16().float()
+    return torch.stack([hi, mid, r - mid])
+
+
 def _w8r_linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     """x @ (s * q + m).T without forming the dense weight. The product
-    x @ q.T is taken in fp32, as the JAX package's is
-    (preferred_element_type=float32): both operands are widened to fp32,
-    which is exact for bf16 activations and int8 weights, and on the card
-    TF32 is turned off for it, so neither the product nor its sum is
-    rounded before the dequant y*s + m*sum(x). Only the result is cast to
-    x's dtype."""
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        y = torch.matmul(x.float(), params["w8r"].float().transpose(-1, -2))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    x @ q.T is exact fp32 arithmetic, as the JAX package asks for it
+    (preferred_element_type=float32), whatever a process-wide precision
+    flag says and without reading or writing one: every operand is
+    bf16-valued (int8 weights; x as itself when bf16, else as three exact
+    bf16 parts, _bf16_parts), so it is exact in TF32 too, and a GEMM
+    multiplies exactly and sums in fp32 with TF32 allowed or not. The
+    parts' products are summed in fp32, then the dequant y*s + m*sum(x);
+    only the result is cast to x's dtype."""
+    q = params["w8r"].float().transpose(-1, -2)
+    if x.dtype == torch.bfloat16:
+        y = x.float() @ q
+    else:
+        y = (_bf16_parts(x.float()) @ q).sum(0)
     s = params["s"][..., 0, :].float()
     m = params["m"][..., 0, :].float()
     xsum = x.float().sum(-1, keepdim=True)

@@ -19,7 +19,8 @@ def test_package_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['qwen3_tts_tpu'] = None\n"
         "import qwen3_tts_tpu_torch\n"
-        "from qwen3_tts_tpu_torch import cli, convert, pipeline, testing\n"
+        "from qwen3_tts_tpu_torch import cli, convert, pipeline, server, service, testing\n"
+        "from qwen3_tts_tpu_torch.models import prompt, serving\n"
         "from qwen3_tts_tpu_torch.ops.cuda import _build, pretransformer_kernel, "
         "quant_matmul, upsample_kernel, vocoder_kernels\n"
         "import chip_smoke\n"
