@@ -26,7 +26,10 @@ non-zero):
                 512 (the last three not summed in the kernels line); K7 at 4 and
                 6 bits on the mixed mode's linears, and one 2-, 3- and 8-bit
                 shape, each at M = 1 and M = 300, and the 4-bit text
-                projection at 3 and 114; past their M0 (the tensor-core
+                projection at 3 and 114; K7's 4-bit product beside its
+                library call, torch._weight_int4pack_mm, at M = 1 gate/up,
+                o and down and the text projection at 3 and 114 (held
+                against K7's output); past their M0 (the tensor-core
                 tile) two calls bit-identical, one device kernel a call
                 (profiler), and a dense bf16 torch.matmul of the same shape
                 as a yardstick; the tile at every width and group size,
@@ -127,12 +130,25 @@ non-zero):
                 resident bytes, and K1, K2, K3, K4, K5, K6 and the blocks'
                 upsample launched,
                 K2g's kernel, K4a and K7 not
+  train       - the joint TTS train step (parallel/train.py) at 0.6B, full
+                depth, fp32 params from a seed, B = 2, T = 256, TF32 off:
+                five steps with remat off and on (the loss finite and
+                falling, the first step's loss equal), step ms, peak bytes,
+                the matmul FLOPs' share of the fp32 peak; at full width and
+                2 + 2 layers the step on the card against the card
+                machine's CPU, shard_params and the step on a one-process
+                NCCL (dp = 1, tp = 1) mesh against the plain step, and a
+                checkpoint saved, restored bit for bit and resumed; no
+                kernel of the port launched (dense torch matmuls and
+                autograd, as the JAX step is dense jnp)
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
-others, "launches_serving" on the serving runs and "launches_service" on
-the service's traffic: the wrappers' calls, eager and captured, not the
-graph replays) and the last is
-{"ok": true, "device": {...}}.
+others, "launches_serving" on the serving runs, "launches_service" on
+the service's traffic and "launches_train" on the train phase, 0 for
+every kernel: the wrappers' calls, eager and captured, not the graph
+replays; K7's row also has its library call's time, torch.
+_weight_int4pack_mm at its 4-bit shapes, beside its own there) and the
+last is {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
 again by replaying a CUDA graph of it (device time, without Python's
@@ -208,6 +224,11 @@ KERNELS = {
                        "qwen3_tts_tpu/ops/pallas/vocoder_kernels.py:410"),
 }
 PLAIN_XLA = {"block_upsample"}  # KERNELS entries that replace plain XLA code
+# (K, O, M) where K7's 4-bit product is timed beside its library call: M = 1
+# gate/up, o and down (the mixed mode's step), the text projection's fc1
+# and fc2 at M = 3 and 114 (the pre-quantized prompt)
+K7_LIBRARY_SHAPES = {(1024, 6144, 1), (2048, 1024, 1), (3072, 1024, 1), (2048, 2048, 3),
+                     (2048, 1024, 3), (2048, 2048, 114), (2048, 1024, 114)}
 TEXT = ("The quick brown fox jumps over the lazy dog, and then it runs far "
         "away into the quiet green forest.")
 
@@ -331,7 +352,7 @@ class Record:
 
     def __init__(self):
         self.rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                         "t_bytes": 0.0, "t_ops": 0.0} for k in KERNELS}
+                         "t_bytes": 0.0, "t_ops": 0.0, "library_ms": None} for k in KERNELS}
 
     def add(self, name, label, dtype, err, abs_err, tol, timing, plain_timing, nb, ops,
             extra="", timed=True):
@@ -492,11 +513,14 @@ def phase_kernels(rec: Record) -> None:
                 err = rel_rms(got.float(), ref.float())
                 if not bool(torch.isfinite(got.float()).all()):
                     err = float("nan")
+                k7_ms = graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
                 rec.add("packed_matmul", f"{bits}-bit M={m} K={k} O={o}", dtype, err,
                         float((got.float() - ref.float()).abs().max()), TOL[dtype],
-                        (graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64)), "graph"),
+                        (k7_ms, "graph"),
                         time_ms(lambda: pm.packed_matmul_plain(x, wq, s, b, bits, 64), it),
                         nbytes(x, wq, s, b, got), {dtype: 2 * m * k * o}, timed=main)
+                if bits == 4 and dtype == "bfloat16" and (k, o, m) in K7_LIBRARY_SHAPES:
+                    int4pack_library(rec, x, wq, s, b, got, k7_ms)
                 if m > pm.M0:
                     same_bits("packed_matmul", f"{bits}-bit M={m} K={k} O={o} {dtype}", got,
                               lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
@@ -607,6 +631,35 @@ def phase_kernels(rec: Record) -> None:
                         conv_yardstick(bp, y)
                 x = got if got.dim() == 3 else None
     torch.cuda.synchronize()
+
+
+def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float) -> None:
+    """The library call for K7's 4-bit product: torch._weight_int4pack_mm
+    on the same weights. MLX's w = s q + b is its (q - 8) scale + zero with
+    scale = s and zero = b + 8 s, in bf16 [K / 64, O, 2]; the nibbles go
+    two a byte, the even column high, then into its tile layout. Held
+    against K7's output at TOL["bfloat16"] (scale and zero rounded to bf16
+    are another function by ~2^-9 of a weight) and timed by graph replay."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.quant import unpack_bits_torch
+
+    m, k = x.shape
+    q = unpack_bits_torch(wq, 4, k).to(torch.int32)
+    packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([s, b + 8 * s], dim=-1).transpose(0, 1).contiguous().to(torch.bfloat16)
+    lib = torch._weight_int4pack_mm(x, packed, 64, sz)
+    err = rel_rms(lib.float(), got.float())
+    ms = graph_ms(lambda: torch._weight_int4pack_mm(x, packed, 64, sz))
+    ok = err <= TOL["bfloat16"]
+    log(f"[kernels] library, packed_matmul 4-bit M={m} K={k} O={got.shape[1]}: "
+        f"torch._weight_int4pack_mm {ms:.4f} ms (graph) against K7 {k7_ms:.4f} ms; "
+        f"rel_rms against K7 {err:.3e} (tol {TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("torch._weight_int4pack_mm disagrees with K7")
+    row = rec.rows["packed_matmul"]
+    row["library_ms"] = (row["library_ms"] or 0.0) + ms
+    row["ms_at_library_shapes"] = row.get("ms_at_library_shapes", 0.0) + k7_ms
 
 
 def qmm_weights(gen, dev, bits: int | None, k: int, o: int):
@@ -797,6 +850,32 @@ def upsample_phases(sp: dict, x, label: str):
     return out
 
 
+def profiled_kernels(call, n: int, with_device_us: bool = False):
+    """The device kernels of n calls in one torch.profiler window, and the
+    records each window saw. A window can come back with fewer records than
+    kernels ran (0 of 1 or 3 of 4, in about one chip_smoke run of six, on
+    this tree and its parents alike; cp_frame's first two windows of forty
+    once saw 2 and 3 of 4 while its 300 runs were bit-identical and every
+    later window saw 4), so a window short of n records of one name is
+    taken again, up to five windows; more records, or another
+    kernel's, end the windows at once and the caller fails on them. Returns
+    (names of the last window, records per window[, its device us])."""
+    import torch
+
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        seen.append(len(kernels))
+        if len(kernels) >= n or len(set(kernels)) > 1:
+            break
+    return (kernels, seen, device_us(prof)) if with_device_us else (kernels, seen)
+
+
 def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int,
                         expect: str | None = None) -> None:
     """A call is one device kernel: torch.profiler over 4 calls sees 4
@@ -806,28 +885,14 @@ def one_kernel_per_call(name: str, label: str, call, event_ms: float, ops: int,
     K3 / K7 timings, has lost the record of one of the 4 kernels, in every
     window (the same calls profiled at the start of the phase, or in a
     process of their own, show all 4; why is not known), so the check runs
-    at the start of the phase; a window with fewer records is still
-    repeated, up to three windows, and more records, or another kernel's,
-    fail at once."""
-    import torch
-
+    at the start of the phase (windows: profiled_kernels)."""
     call()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                call()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        seen.append(len(kernels))
-        if len(kernels) > 4 or len(set(kernels)) > 1:
-            raise SystemExit(f"{name} is not one device kernel per call: {kernels}")
-        if expect and not all(expect in k for k in kernels):
-            raise SystemExit(f"{name} {label} did not launch {expect}: {kernels}")
-        if len(kernels) == 4:
-            break
-    dev_ms = device_us(prof) / 1e3 / max(len(kernels), 1)
+    kernels, seen, dev_us = profiled_kernels(call, 4, with_device_us=True)
+    if len(kernels) > 4 or len(set(kernels)) > 1:
+        raise SystemExit(f"{name} is not one device kernel per call: {kernels}")
+    if expect and not all(expect in k for k in kernels):
+        raise SystemExit(f"{name} {label} did not launch {expect}: {kernels}")
+    dev_ms = dev_us / 1e3 / max(len(kernels), 1)
     log(f"[kernels] {name} {label} bf16: 4 calls ran {len(kernels)} device kernels "
         f"({sorted(set(kernels))}; records per window {seen}); device time {dev_ms:.4f} ms a "
         f"call (profiler) against {event_ms:.4f} ms (events); {ops / event_ms / 1e9:.1f} "
@@ -1158,18 +1223,18 @@ def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_ma
     for name, fn, call in (("talker_step", k1, calls[0]), ("cp_frame", k2, calls[1])):
         a, b = fn(), fn()
         torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        differ = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
         call()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                call()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        log(f"[megakernels] {name}: two runs bit-identical: {same}; 4 calls ran "
-            f"{len(kernels)} device kernels ({sorted(set(kernels))}) ({card})")
-        if not same or len(kernels) != 4 or len(set(kernels)) != 1:
-            raise SystemExit(f"{name} is not one deterministic kernel per call")
+        kernels, windows = profiled_kernels(call, 4)
+        log(f"[megakernels] {name}: two runs bit-identical: {not differ}; 4 calls ran "
+            f"{len(kernels)} device kernels ({sorted(set(kernels))}; records per window "
+            f"{windows}) ({card})")
+        if differ:
+            raise SystemExit(f"{name}: two runs on the same inputs differ in outputs {differ}")
+        if len(kernels) != 4 or len(set(kernels)) != 1:
+            raise SystemExit(f"{name} is not one device kernel per call: {kernels} "
+                             f"(records per window {windows})")
 
 
     n_pass = cc.num_code_groups
@@ -2501,7 +2566,7 @@ def replayed_k3(g, n: int) -> int:
     """K3's device kernels in a torch.profiler window of n replays of graph
     g. A window short of n times the capture's launches is taken again, up
     to three windows (a profiler window can lose records; see
-    one_kernel_per_call); the last window's count is returned."""
+    profiled_kernels); the last window's count is returned."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
@@ -2527,6 +2592,288 @@ def check_pool(g, label: str) -> None:
     """A graph's pool must have grown at its capture."""
     if g.pool_bytes <= 0:
         raise SystemExit(f"[{label}] graph pool read {g.pool_bytes} bytes at its capture")
+
+
+# the train phase: the joint TTS step at 0.6B, fp32 (TF32 off)
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 2, 256, 5
+# card against the card machine's CPU, both fp32 with TF32 off: the same
+# math with sums in another order (K up to 3,072 a product; the embedding
+# gradients' index_add in another order on the card): loss and parts rel
+# 1e-5, every leaf's gradient rel RMS 1e-4, as the CPU tests hold the port
+# against JAX. The one-process mesh step runs the unfused products (other
+# GEMM shapes): the same tolerances. A step resumed from a checkpoint reads
+# params equal bit for bit, so its loss is held at 1e-6 and its params at
+# rel RMS 1e-6 (the embedding gradients' atomics).
+TOL_TRAIN = {"loss": 1e-5, "grad": 1e-4, "resume": 1e-6}
+FP32_PEAK = RATE["float32"]
+
+
+def train_flops(cfg, b: int, t: int) -> int:
+    """Matmul FLOPs of one train step (forward + backward = 3 x forward; a
+    remat step's recomputed forward not counted): every linear, the talker's
+    codec head, the cp's 15 lm heads and the attention products over full
+    T x T (and 16 x 16) score blocks, as the step computes them."""
+    def stack(c, n_tok: int, seq: int) -> int:
+        hd, nq, nkv = c.head_dim, c.num_attention_heads, c.num_key_value_heads
+        h, inter = c.hidden_size, c.intermediate_size
+        per_tok = h * (nq + 2 * nkv) * hd + nq * hd * h + 3 * h * inter
+        attn = 4 * nq * seq * hd * n_tok  # q k^T and p v, each seq keys per query
+        return c.num_hidden_layers * (2 * n_tok * per_tok + attn)
+
+    cc = cfg.code_predictor_config
+    n, ng = b * t, cc.num_code_groups
+    fwd = stack(cfg, n, t) + 2 * n * cfg.hidden_size * cfg.vocab_size
+    fwd += stack(cc, n * ng, ng) + 2 * n * (ng - 1) * cc.vocab_size * cc.hidden_size
+    if cc.hidden_size != cfg.hidden_size:
+        fwd += 2 * n * ng * cfg.hidden_size * cc.hidden_size
+    return 3 * fwd
+
+
+def _tree_rel(got: dict, ref: dict, tol: float, label: str) -> float:
+    """Worst rel RMS over the leaves (zero where the reference is zero),
+    on got's device; SystemExit past tol."""
+    from qwen3_tts_tpu_torch.parallel import train
+
+    paths, gl = train._flatten(got)
+    worst = 0.0
+    for path, g, r in zip(paths, gl, train._flatten(ref)[1], strict=True):
+        g, r = g.detach(), r.detach().to(g.device)
+        err = rel_rms(g, r) if bool(r.any()) else (0.0 if not bool(g.any()) else float("inf"))
+        if not err <= tol:  # NaN fails
+            raise SystemExit(f"[train] {label}: leaf {'.'.join(path)} rel RMS {err:.3e} > {tol:g}")
+        worst = max(worst, err)
+    return worst
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+GEMM_NAME = re.compile(r"gemm|cutlass|xmma|sm90_", re.IGNORECASE)
+
+
+def profile_train_step(step, both, state, batch, wall_ms: float, card: str) -> dict:
+    """One more step under torch.profiler: device busy ms (the device
+    activities' summed durations) against the step's event ms (the idle
+    share), the GEMMs' share of the device time (kernels named like cuBLAS /
+    CUTLASS GEMMs), and the kernels that take the most."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(both, state, batch)
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():  # device activities only: an aten op's row repeats its kernels'
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    gemm_ms = sum(r[0] for r in rows if GEMM_NAME.search(r[2]))
+    if dev_ms <= 0:
+        log("[train] profile: device time not measured (the profiler saw no device activity)")
+        return {}
+    log(f"[train] profile of one step (remat off): device busy {dev_ms:.2f} ms against the "
+        f"step's {wall_ms:.2f} ms (idle {100 * (1 - dev_ms / wall_ms):.1f}%), "
+        f"{sum(r[1] for r in rows)} device kernels; GEMMs {gemm_ms:.2f} ms "
+        f"({100 * gemm_ms / dev_ms:.1f}%); {card}")
+    for ms, n, key in rows[:8]:
+        log(f"[train]   {ms:.3f} ms in {n} launches: {key[:90]}")
+    return {"device_ms": dev_ms, "gemm_ms": gemm_ms, "kernels": sum(r[1] for r in rows),
+            "top": [[ms, n, key[:90]] for ms, n, key in rows[:8]]}
+
+
+def phase_train(card: str) -> tuple[dict, dict]:
+    """The joint TTS train step at Qwen3TTSConfig.standard(), full depth,
+    fp32 params from seed 0 (talker) and 1 (cp), a random batch (B = 2, T
+    = 256, embeds and codes from seed 1), TF32 off: TRAIN_STEPS steps with
+    remat off and on (the loss finite and falling, the first step's loss
+    and parts equal), step ms (CUDA events, median of steps 2-5), peak
+    bytes, the matmul FLOPs over the step's ms against the fp32 peak; then
+    at full width and 2 + 2 layers: one step on the card against the card
+    machine's CPU (loss, parts, every leaf's gradient), shard_params and
+    the step on a one-process NCCL (dp = 1, tp = 1) mesh against the plain
+    step, and a checkpoint saved and restored on the card (bit for bit, on
+    the template's device and dtype; a resumed step against an
+    uninterrupted one). Launches no kernel of the port. Returns (launch
+    counts over the phase, metrics)."""
+    import dataclasses
+    import os
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.convert import to_torch
+    from qwen3_tts_tpu_torch.parallel import checkpoint as ck
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+    from qwen3_tts_tpu_torch.parallel import train
+    from qwen3_tts_tpu_torch.testing import random_host_cp_params, random_host_talker_params
+
+    dev = torch.device("cuda")
+    cfg = qt.Qwen3TTSConfig.standard()
+    reset_counts()
+    t_phase = t0 = time.perf_counter()
+
+    def tlog(msg: str) -> None:  # each line with the phase's elapsed time
+        log(f"{msg} (phase +{time.perf_counter() - t_phase:.1f} s)")
+
+    host = {"talker": random_host_talker_params(cfg, 0), "cp": random_host_cp_params(cfg, 1)}
+    rng = np.random.default_rng(1)
+    batch_np = {
+        "embeds": rng.standard_normal((TRAIN_B, TRAIN_T, cfg.hidden_size), dtype=np.float32),
+        "frames": rng.integers(0, cfg.vocab_size,
+                               (TRAIN_B, TRAIN_T, cfg.code_predictor_config.num_code_groups)),
+        "mask": np.ones((TRAIN_B, TRAIN_T), np.float32),
+    }
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    init = to_torch(host, dev)
+    n_params = sum(x.numel() for x in train._flatten(init)[1])
+    flops = train_flops(cfg, TRAIN_B, TRAIN_T)
+    tlog(f"[train] 0.6B fp32 params ({n_params:,}) and a B = {TRAIN_B}, T = {TRAIN_T} batch "
+        f"on the card in {time.perf_counter() - t0:.1f} s; {flops / 1e12:.3f} TFLOP of "
+        f"matmuls a step")
+
+    metrics = {"params": n_params, "flops": flops}
+    first = {}
+    for remat in (False, True):
+        both = train._map(torch.clone, init)
+        optimizer, step = train.make_tts_train_step(cfg, remat=remat)
+        state = optimizer.init(both)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for i in range(TRAIN_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            both, state, loss, parts = step(both, state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+            if i == 0:
+                first[remat] = (float(loss), {k: float(v) for k, v in parts.items()})
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(ms[1:5])
+        share = flops / (med / 1e3) / FP32_PEAK
+        key = "remat" if remat else "plain"
+        metrics[key] = {"losses": losses, "step_ms": ms, "step_ms_median_2_5": med,
+                        "peak_bytes": peak, "fp32_peak_share": share}
+        tlog(f"[train] remat={remat}: losses {[round(x, 5) for x in losses]}; step ms "
+            f"{[round(x, 2) for x in ms]}, median of steps 2-5 {med:.2f} ms; peak "
+            f"max_memory_allocated {peak:,} B; {flops / 1e12:.3f} TFLOP / {med:.2f} ms = "
+            f"{flops / med / 1e9:.1f} TFLOP/s, {100 * share:.1f}% of the fp32 peak "
+            f"({FP32_PEAK / 1e12:.0f} TFLOP/s); {card}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SystemExit(f"[train] remat={remat}: the loss is not finite and falling: {losses}")
+        if not remat:
+            metrics["profile"] = profile_train_step(step, both, state, batch, med, card)
+        del both, state, optimizer, step
+        torch.cuda.empty_cache()
+    (l0, p0), (l1, p1) = first[False], first[True]
+    errs = [_rel(l1, l0)] + [_rel(p1[k], p0[k]) for k in p0]
+    tlog(f"[train] first step, remat on against off: loss {l1!r} vs {l0!r}, parts {p1} vs {p0}; "
+        f"worst rel {max(errs):.3e} (tol {TOL_TRAIN['resume']:g}), bit for bit: {l1 == l0}")
+    if not max(errs) <= TOL_TRAIN["resume"]:
+        raise SystemExit("[train] remat changed the first step's loss")
+    metrics["remat_first_step_rel"] = max(errs)
+    del init
+    torch.cuda.empty_cache()
+
+    # full width, 2 talker + 2 code-predictor layers
+    n = 2
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=n, code_predictor_config=dataclasses.replace(
+        cfg.code_predictor_config, num_hidden_layers=n))
+    cut = {part: {k: ({kk: {x: w[:n] for x, w in vv.items()} for kk, vv in v.items()}
+                      if k == "layers" else v) for k, v in tree.items()}
+           for part, tree in host.items()}
+    del host
+    cpu_both = to_torch(cut, "cpu")
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    t0 = time.perf_counter()
+    closs, cparts, cgrads = train.tts_value_and_grad(cpu_both, cpu_batch, cut_cfg)
+    cpu_s = time.perf_counter() - t0
+    both = train._map(lambda x: x.to(dev), cpu_both)
+    gloss, gparts, ggrads = train.tts_value_and_grad(both, batch, cut_cfg)
+    errs = [_rel(gloss, closs)] + [_rel(gparts[k], cparts[k]) for k in cparts]
+    if not max(errs) <= TOL_TRAIN["loss"]:
+        raise SystemExit(f"[train] card against CPU: loss / parts rel {errs}")
+    worst = _tree_rel(ggrads, cgrads, TOL_TRAIN["grad"], "card against CPU, gradient")
+    tlog(f"[train] full width, {n} + {n} layers, card against the CPU ({cpu_s:.1f} s there): "
+        f"loss {float(gloss)!r} vs {float(closs)!r}, loss / parts worst rel {max(errs):.3e} "
+        f"(tol {TOL_TRAIN['loss']:g}); every leaf's gradient, worst rel RMS {worst:.3e} "
+        f"(tol {TOL_TRAIN['grad']:g})")
+    metrics["card_vs_cpu"] = {"loss_rel": max(errs), "grad_rel_rms": worst}
+    del cpu_both, cgrads, ggrads
+
+    # shard_params and the step on a one-process NCCL mesh
+    with tempfile.TemporaryDirectory() as d:
+        sh.init_process_group("cuda", 0, 1, f"file://{d}/rendezvous", timeout_s=60)
+        try:
+            mesh = sh.make_mesh()
+            sharded = {"talker": sh.shard_params(both["talker"], mesh, config=cut_cfg),
+                       "cp": train._map(torch.clone, both["cp"])}
+            sbatch = sh.shard_batch(batch, mesh)
+            optimizer, step = train.make_tts_train_step(cut_cfg)
+            sharded, _, sloss, sparts = step(sharded, optimizer.init(sharded), sbatch)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    plain = train._map(torch.clone, both)
+    plain, _, ploss, pparts = step(plain, optimizer.init(plain), batch)
+    errs = [_rel(sloss, ploss)] + [_rel(sparts[k], pparts[k]) for k in pparts]
+    if not max(errs) <= TOL_TRAIN["loss"]:
+        raise SystemExit(f"[train] mesh step against the plain step: loss / parts rel {errs}")
+    full = train._map(lambda x: x.full_tensor() if isinstance(x, sh.DTensor) else x, sharded)
+    worst = _tree_rel(full, dict(plain, talker=sh.unfuse_qkv_gateup(plain["talker"], cut_cfg)),
+                      TOL_TRAIN["loss"], "mesh step against the plain step, params")
+    tlog(f"[train] shard_params + step on a one-process {backend} mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} against the plain step: loss / "
+        f"parts worst rel {max(errs):.3e}, updated params worst rel RMS {worst:.3e} (tol "
+        f"{TOL_TRAIN['loss']:g})")
+    metrics["mesh_vs_plain"] = {"loss_rel": max(errs), "param_rel_rms": worst}
+    del sharded, full, plain
+
+    # a checkpoint on the card, and a resumed step
+    optimizer, step = train.make_tts_train_step(cut_cfg)
+    state = {"params": both, "opt_state": optimizer.init(both)}
+    step(state["params"], state["opt_state"], batch)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ck.save_train_state(d, 1, state)
+        save_s = time.perf_counter() - t0
+        saved_bytes = sum(os.path.getsize(os.path.join(r, f))
+                          for r, _, fs in os.walk(d) for f in fs)
+        snapshot = train._map(torch.clone, state)
+        _, _, loss_a, _ = step(state["params"], state["opt_state"], batch)
+        t0 = time.perf_counter()
+        _, restored = ck.restore_train_state(d, train._map(torch.empty_like, snapshot))
+        restore_s = time.perf_counter() - t0
+    paths, rl = train._flatten(restored)
+    for path, r, s in zip(paths, rl, train._flatten(snapshot)[1], strict=True):
+        if r.device != s.device or r.dtype != s.dtype or not torch.equal(r, s):
+            raise SystemExit(f"[train] checkpoint round trip: leaf {'.'.join(path)} differs")
+    _, _, loss_b, _ = step(restored["params"], restored["opt_state"], batch)
+    worst = _tree_rel(restored, state, TOL_TRAIN["resume"], "resumed step, params")
+    err = _rel(loss_b, loss_a)
+    tlog(f"[train] checkpoint of the {n} + {n}-layer state on the card: {saved_bytes:,} B saved "
+        f"in {save_s:.1f} s, restored in {restore_s:.1f} s, every leaf bit for bit on "
+        f"{r.device} in {r.dtype}; the resumed step against the uninterrupted one: loss rel "
+        f"{err:.3e} (bit for bit: {float(loss_b) == float(loss_a)}), params worst rel RMS "
+        f"{worst:.3e} (tol {TOL_TRAIN['resume']:g})")
+    if not err <= TOL_TRAIN["resume"]:
+        raise SystemExit("[train] the resumed step's loss differs")
+    metrics["checkpoint"] = {"bytes": saved_bytes, "save_s": save_s, "restore_s": restore_s,
+                             "resume_loss_rel": err, "resume_param_rel_rms": worst}
+    del state, snapshot, restored, both
+    torch.cuda.empty_cache()
+    launches = read_counts()
+    check_counts("train", launches, need=(), idle=tuple(KERNELS))
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase: {metrics['phase_s']:.1f} s")
+    return launches, metrics
 
 
 def main() -> int:
@@ -2642,6 +2989,7 @@ def main() -> int:
             f"(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig()) in "
             f"{time.perf_counter() - t0:.1f} s")
         launches["modes"], results["modes"] = phase_modes(card, d)
+    launches["train"], results["train"] = phase_train(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
 
@@ -2652,7 +3000,11 @@ def main() -> int:
                "launches": launches["megakernels"][name], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
-               "library_ms": None}
+               "library_ms": r["library_ms"]}
+        if name == "packed_matmul":  # the library covers its 4-bit shapes only
+            row["library_call"] = "torch._weight_int4pack_mm"
+            row["library_shapes"] = sorted(K7_LIBRARY_SHAPES)
+            row["ms_at_library_shapes"] = r["ms_at_library_shapes"]
         if name == "packed_matmul":  # its two paths
             row["launches"] = launches["prequant"][name] + launches["mixed"][name]
         if name == "pre_transformer_fused":  # its own entry point
@@ -2665,6 +3017,7 @@ def main() -> int:
             row[f"launches_{path}"] = launches[path][name]
         row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
         row["launches_service"] = launches["service"][name]
+        row["launches_train"] = launches["train"][name]  # the training path launches none
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ from ..ops.norms import rms_norm
 
 
 def _layer(params: dict, i: int) -> dict:
-    """Layer i's slice of a stacked layer tree."""
-    return {k: {kk: vv[i] for kk, vv in v.items()} for k, v in params.items()}
+    """Layer i's slice of a stacked layer tree (any depth: the
+    tensor-parallel layout nests q / k / v and gate / up one level more)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in params.items()}
 
 
 def text_projection(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -65,12 +66,21 @@ def rope_cos_sin(config: Qwen3TTSConfig, positions: torch.Tensor):
 
 def layer_qkv(lp: dict, x: torch.Tensor, cos, sin, nq: int, nkv: int, hd: int,
               eps: float):
-    """q [B, Hq, L, D], k/v [B, Hkv, L, D] for one layer (fused qkv)."""
+    """q [B, Hq, L, D], k/v [B, Hkv, L, D] for one layer: fused qkv
+    ({"qkv_proj": entry}, one matmul and a split), or the tensor-parallel
+    layout ({"qkv_proj": {"q", "k", "v"}}, parallel/sharding.py), where a tp
+    split of each section's rows lands on head boundaries."""
     b, l, _ = x.shape
-    qkv = linear(lp["qkv_proj"], x)
-    q = qkv[..., : nq * hd].reshape(b, l, nq, hd)
-    k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, l, nkv, hd)
-    v = qkv[..., (nq + nkv) * hd:].reshape(b, l, nkv, hd)
+    qp = lp["qkv_proj"]
+    if "q" in qp:
+        q = linear(qp["q"], x).reshape(b, l, nq, hd)
+        k = linear(qp["k"], x).reshape(b, l, nkv, hd)
+        v = linear(qp["v"], x).reshape(b, l, nkv, hd)
+    else:
+        qkv = linear(qp, x)
+        q = qkv[..., : nq * hd].reshape(b, l, nq, hd)
+        k = qkv[..., nq * hd:(nq + nkv) * hd].reshape(b, l, nkv, hd)
+        v = qkv[..., (nq + nkv) * hd:].reshape(b, l, nkv, hd)
     q = rms_norm(q, lp["q_norm"]["w"], eps).transpose(1, 2)
     k = rms_norm(k, lp["k_norm"]["w"], eps).transpose(1, 2)
     v = v.transpose(1, 2)
@@ -79,7 +89,12 @@ def layer_qkv(lp: dict, x: torch.Tensor, cos, sin, nq: int, nkv: int, hd: int,
 
 
 def swiglu(lp: dict, x: torch.Tensor, inter: int) -> torch.Tensor:
-    gu = linear(lp["gateup_proj"], x)
+    """SwiGLU over fused gate/up ({"gateup_proj": entry}) or the
+    tensor-parallel layout ({"gateup_proj": {"gate", "up"}})."""
+    gp = lp["gateup_proj"]
+    if "gate" in gp:
+        return F.silu(linear(gp["gate"], x)) * linear(gp["up"], x)
+    gu = linear(gp, x)
     return F.silu(gu[..., :inter]) * gu[..., inter:]
 
 

@@ -22,10 +22,13 @@ def gqa_attention_full(q, k, v, scale: float, mask=None) -> torch.Tensor:
     return out.reshape(b, hq, l, d)
 
 
-def causal_mask(l: int, device=None) -> torch.Tensor:
-    """Additive float32 causal mask [L, L]."""
-    i = torch.arange(l, device=device)
-    return torch.where(i[None, :] <= i[:, None], 0.0, float(NEG_INF))
+def causal_mask(l: int, device=None, offset: int = 0, keys: int | None = None) -> torch.Tensor:
+    """Additive float32 causal mask [L, keys] (keys = L by default) for
+    queries at positions offset + [0, L) over keys at [0, keys): a
+    sequence-parallel rank's rows of the full mask."""
+    i = torch.arange(offset, offset + l, device=device)
+    j = torch.arange(l if keys is None else keys, device=device)
+    return torch.where(j[None, :] <= i[:, None], 0.0, float(NEG_INF))
 
 
 def gqa_attention_decode(q, k_cache, v_cache, cache_pos, window_start, scale: float):

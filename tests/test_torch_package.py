@@ -1,6 +1,7 @@
-"""The port's package rules, checked without a model: it imports with jax
-and the JAX package made unimportable, and CUDA asked for on a host without
-it raises before any model file is read."""
+"""The port's package rules, checked without a model: it imports with jax,
+optax, orbax and the JAX package made unimportable, and CUDA asked for on a
+host without it raises before any model file is read or any process group
+is joined."""
 
 import os
 import subprocess
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from qwen3_tts_tpu_torch import pipeline as tpipe
+from qwen3_tts_tpu_torch.parallel import sharding
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -17,10 +19,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_package_imports_without_jax():
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['qwen3_tts_tpu'] = None\n"
+        "import sys\n"
+        "for name in ('jax', 'qwen3_tts_tpu', 'optax', 'orbax', 'orbax.checkpoint'):\n"
+        "    sys.modules[name] = None\n"
         "import qwen3_tts_tpu_torch\n"
         "from qwen3_tts_tpu_torch import cli, convert, pipeline, server, service, testing\n"
         "from qwen3_tts_tpu_torch.models import prompt, serving\n"
+        "from qwen3_tts_tpu_torch.parallel import checkpoint, dryrun, sharding, train\n"
         "from qwen3_tts_tpu_torch.ops.cuda import _build, pretransformer_kernel, "
         "quant_matmul, upsample_kernel, vocoder_kernels\n"
         "import chip_smoke\n"
@@ -39,3 +44,5 @@ def test_cuda_device_raises_without_cuda(tmp_path, monkeypatch):
     monkeypatch.delenv("QWEN3TTS_DEVICE", raising=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.Qwen3TTSPipeline(d)  # the default device is cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.init_process_group("cuda", init_method=f"file://{tmp_path}/rendezvous")
