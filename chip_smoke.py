@@ -130,6 +130,26 @@ non-zero):
                 resident bytes, and K1, K2, K3, K4, K5, K6 and the blocks'
                 upsample launched,
                 K2g's kernel, K4a and K7 not
+  verify      - the checkpoint tools at full width: write_golden_model_dir
+                at 0.6B (packed at 4 / 6 / 8 bits, group 64, dense
+                stragglers, both encoders at full width); the audit script
+                passes on it; collect_report's exact report on the card
+                (fp32, TF32 off, kernels off) is the golden; the production
+                report (default configuration, bf16: K1, K2, K7, K4-K6 and
+                the blocks' upsample launched, K2g's and K4a's own entry
+                points not) passes tpu-bf16 and fails cpu-fp32, each
+                checksum's error beside its limit, and the golden frames
+                through the production vocoder pass; codec_head.scales x1.5
+                fails tpu-bf16; speech_tokenizer_decode at B = 2 (one
+                stream padded) with the kernels against the plain vocoder;
+                decode_chunk_batched at B = 4 with the megakernels off (K7
+                at M = 4 on the codec head: the loader dequantizes the
+                layers, whose q / k / v, gate / up and layers differ in
+                width) against four single-stream chunks, greedy, a
+                departure allowed only at a near-tie, and its device ms a
+                chunk; the native BPE core against the Python path; a
+                PhaseTimer over the stages and a trace() window over one
+                vocoder decode
   train       - the joint TTS train step (parallel/train.py) at 0.6B, full
                 depth, fp32 params from a seed, B = 2, T = 256, TF32 off:
                 five steps with remat off and on (the loss finite and
@@ -144,7 +164,8 @@ non-zero):
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
 others, "launches_serving" on the serving runs, "launches_service" on
-the service's traffic and "launches_train" on the train phase, 0 for
+the service's traffic, "launches_verify" on the verify phase and
+"launches_train" on the train phase, 0 for
 every kernel: the wrappers' calls, eager and captured, not the graph
 replays; K7's row also has its library call's time, torch.
 _weight_int4pack_mm at its 4-bit shapes, beside its own there) and the
@@ -2604,6 +2625,365 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS = 2, 256, 5
 # GEMM shapes): the same tolerances. A step resumed from a checkpoint reads
 # params equal bit for bit, so its loss is held at 1e-6 and its params at
 # rel RMS 1e-6 (the embedding gradients' atomics).
+# the verify phase: frame-dependent checksums (their input is the greedy
+# frames, which bf16 drift may legitimately change on random weights)
+FRAME_CHECKSUMS = ("wav",)
+VERIFY_TEXTS = SERVICE_TEXTS[1:5]  # decode_chunk_batched's four streams
+VERIFY_STEPS = 8
+
+
+def _summed(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b[k] for k in b}
+
+
+def _checksum_errors(got: dict, golden: dict, tier: str) -> dict:
+    """checksum -> (its worst |have - want| past atol over |want|, the tier's
+    rtol): the relative error np.allclose holds against the limit."""
+    from qwen3_tts_tpu_torch.io import verify
+
+    policy = verify.TOLERANCE_TIERS[tier]
+    out = {}
+    for name, want in golden["checksums"].items():
+        h, w = np.asarray(got["checksums"][name]), np.asarray(want)
+        err = np.max(np.maximum(np.abs(h - w) - policy["atol"], 0.0) / np.abs(w).clip(1e-30))
+        out[name] = (float(err), policy["rtol"].get(name, policy["rtol"]["default"]))
+    return out
+
+
+def _run_script(path: str, args: list[str]) -> tuple[int, str]:
+    """(exit code, standard output) of the script at `path` run as __main__
+    in this process with `args` (no interpreter start-up)."""
+    import contextlib
+    import io
+    import runpy
+
+    argv, buf, rc = sys.argv, io.StringIO(), 0
+    sys.argv = [path, *args]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        sys.argv = argv
+    return rc, buf.getvalue()
+
+
+def _broken_copy(d: str, out: str) -> str:
+    """`out` (a new directory inside `d`) holding `d`'s files (links) but a
+    model.safetensors whose talker codec_head scales are x1.5 (a wrong
+    dequantization scale)."""
+    import os
+
+    from qwen3_tts_tpu_torch.io import safetensors_io
+
+    os.makedirs(out)
+    for name in os.listdir(d):
+        if name not in ("model.safetensors", "golden.json", os.path.basename(out)):
+            os.symlink(os.path.join(d, name), os.path.join(out, name))
+    w = safetensors_io.load_file(os.path.join(d, "model.safetensors"))
+    key = next(k for k in sorted(w) if k.endswith("codec_head.scales"))
+    w[key] = w[key] * np.float32(1.5)
+    safetensors_io.save_file(w, os.path.join(out, "model.safetensors"))
+    return out
+
+
+def _tie_at(pl, pd, cap: int, step: int, single, batched) -> bool:
+    """Whether the first code where a stream's batched frame `batched`
+    departs from its single-stream frame `single` (at `step`) is a near-tie
+    of the single stream's own scores there: code 0's greedy scores, or the
+    departing code-predictor group's logits with its repetition penalty
+    (that group's inputs are the single's own, equal up to it)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import code_predictor as cp_mod
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import talker as talker_mod
+    from qwen3_tts_tpu_torch.ops.sampling import NEG_INF
+
+    cfg = pl.config
+    st = gen_mod.prefill(pl.params, pd, cfg, capacity=cap)
+    if step:
+        gen_mod.decode_chunk(pl.params, pl.cp_params, st, cfg, steps=step, temperature=0.0,
+                             generator=None, track_cp_penalty=True)
+    g = int(np.nonzero(single != batched)[0][0])
+    if g == 0:
+        eos_pad_mask, valid_mask = st["masks"]
+        has_text = st["trailing_idx"] < st["total_text"]
+        lg = (st["logits"] + torch.where(has_text, eos_pad_mask, 0.0)).float()
+        lg = lg / torch.where(st["seen_code0"], 1.05, 1.0)
+        scores = torch.where(valid_mask & (lg > float(NEG_INF) / 2), lg, float("-inf"))
+    else:  # the departing group's logits, on the single stream's own codes before it
+        seen = st["seen_cp"].clone()
+        logits: list = []
+        code0 = torch.tensor(int(single[0]), device=st["logits"].device)
+        cp_mod.predict_frame(pl.cp_params, st["h_last"],
+                             talker_mod.encode_audio(pl.params, code0.reshape(1, 1)), None,
+                             0.0, st["seen_cp"], cfg.code_predictor_config,
+                             forced_codes=torch.from_numpy(single[1:]).to(code0.device),
+                             logits_out=logits)
+        scores = logits[g - 1].float() / torch.where(seen[g - 1], 1.05, 1.0)
+    return _near_tie(scores.cpu(), int(single[g]), int(batched[g]))
+
+
+def batched_chunk(pl, card: str) -> tuple[dict, dict]:
+    """decode_chunk_batched at B = 4 (VERIFY_TEXTS, one ring capacity)
+    against four single-stream decode_chunk calls, greedy, VERIFY_STEPS
+    frames: each stream's frames equal up to its first departure, which
+    must be a near-tie of the single stream's own scores (_tie_at), after
+    which the two may differ; counts and EOS equal where no frame departs.
+    Times one batched and one single chunk (events; the profiler's summed
+    device time). Returns (launch counts of the batched chunk, metrics)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    label = "verify"
+    kw = dict(temperature=0.0, track_cp_penalty=True)
+    pds = [pl._assemble(t, "aiden") for t in VERIFY_TEXTS]
+    cap = max(pd.input_embeds.shape[1] for pd in pds) + gen_mod.RING_SLACK
+
+    def single(pd):
+        st = gen_mod.prefill(pl.params, pd, pl.config, capacity=cap)
+        return gen_mod.decode_chunk(pl.params, pl.cp_params, st, pl.config, steps=VERIFY_STEPS,
+                                    generator=None, **kw)
+
+    def batched():
+        states = gen_mod.stack_states([gen_mod.prefill(pl.params, pd, pl.config, capacity=cap)
+                                       for pd in pds])
+        return gen_mod.decode_chunk_batched(pl.params, pl.cp_params, states, pl.config,
+                                            steps=VERIFY_STEPS, **kw)
+
+    singles = [tuple(x.cpu() for x in single(pd)) for pd in pds]
+    reset_counts()
+    torch.cuda.synchronize()
+    frames, counts, eos = (x.cpu() for x in batched())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    departed, ties = [], 0
+    for j, (fs, cs, es) in enumerate(singles):
+        diff = (fs != frames[j]).any(1).nonzero()
+        if len(diff) == 0:
+            if int(cs) != int(counts[j]) or bool(es) != bool(eos[j]):
+                raise SystemExit(f"[{label}] stream {j}: equal frames, counts {int(counts[j])} "
+                                 f"vs {int(cs)}, eos {bool(eos[j])} vs {bool(es)}")
+            continue
+        i = int(diff[0])
+        if not _tie_at(pl, pds[j], cap, i, fs[i].numpy(), frames[j, i].numpy()):
+            departed.append((j, i))
+        ties += 1
+    log(f"[{label}] decode_chunk_batched B={len(pds)} x {VERIFY_STEPS} frames against 4 "
+        f"single-stream chunks (greedy): {len(pds) - ties} streams equal in every frame, "
+        f"count and EOS; {ties} departed, {ties - len(departed)} of them at a near-tie "
+        f"(within {NEAR_TIE:g} of the top score); counts {counts.tolist()}; K7 launches "
+        f"{launches['packed_matmul']}, K3 {launches['int8_matmul']} ({card}, bf16)")
+    if departed:
+        raise SystemExit(f"[{label}] batched frames depart from the single streams away from "
+                         f"a near-tie: (stream, step) {departed}")
+
+    def timed(fn) -> tuple[float, float]:
+        fn()
+        torch.cuda.synchronize()
+        ev = _events_ms(fn)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return ev, device_us(prof) / 1e3
+
+    m = {}
+    m["batched_event_ms"], m["batched_device_ms"] = timed(batched)
+    m["single_event_ms"], m["single_device_ms"] = timed(lambda: single(pds[0]))
+    log(f"[{label}] a {VERIFY_STEPS}-frame chunk (prefill included): B=4 batched "
+        f"{m['batched_event_ms']:.1f} ms by events, {m['batched_device_ms']:.1f} ms of device "
+        f"time; one stream {m['single_event_ms']:.1f} / {m['single_device_ms']:.1f} ms ({card}, "
+        f"bf16; K7 on the codec head at M=4 / M=1)")
+    return launches, m
+
+
+def phase_verify(card: str) -> tuple[dict, dict]:
+    """The checkpoint tools at full width: write_golden_model_dir at
+    Qwen3TTSConfig.standard() (the default decoder, the full-width speaker
+    and audio encoders, widths 4 / 6 / 8, group 64, seed 0); the audit
+    script must pass on it; collect_report's exact report on the card
+    (fp32, TF32 off, kernels off) saved as the golden; the production report
+    (default configuration, bf16) must pass tpu-bf16 and fail cpu-fp32,
+    each checksum's error printed beside its limit (a frame-dependent
+    checksum may miss only where the frames departed and the golden frames
+    through the production vocoder pass), launching K1, K2, K7, K4-K6 and
+    the blocks' upsample, not K2g's nor K4a's own entry points; the same
+    checkpoint with codec_head.scales x1.5 must fail tpu-bf16;
+    speech_tokenizer_decode at B = 2 (the production frames, and them with
+    the last third padded) with the kernels against the plain vocoder;
+    decode_chunk_batched at B = 4 (batched_chunk) with the megakernels off
+    (K7 at M = B on the codec head, which stays packed; the mixed-width
+    layers load dequantized); the native BPE core against the
+    Python path; a PhaseTimer over the stages and a trace() window over one
+    production vocoder decode. Returns (launch counts over the phase,
+    metrics)."""
+    import os
+
+    import torch
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.config import SpeechTokenizerConfig
+    from qwen3_tts_tpu_torch.convert import to_torch
+    from qwen3_tts_tpu_torch.frontend.tokenizer import Qwen3Tokenizer
+    from qwen3_tts_tpu_torch.io import checkpoint as ckpt
+    from qwen3_tts_tpu_torch.io import safetensors_io, verify
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    from qwen3_tts_tpu_torch.testing import write_golden_model_dir
+    from qwen3_tts_tpu_torch.utils.postprocess import sanitize_samples
+    from qwen3_tts_tpu_torch.utils.profiling import PhaseTimer, trace
+
+    label = "verify"
+    timer, m, total = PhaseTimer(), {}, {}
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        with timer.phase("write"):
+            write_golden_model_dir(d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(),
+                                   widths=(4, 6, 8), group_size=64, seed=0)
+        with timer.phase("audit"):  # the script, run in this process
+            rc, out = _run_script(f"{root}/scripts/torch_audit_checkpoint.py", [d])
+        keys = [ln.strip() for ln in out.splitlines() if ln.startswith(("dense", "quant"))]
+        log(f"[{label}] torch_audit_checkpoint.py on a 0.6B dir packed at 4 / 6 / 8 bits: rc "
+            f"{rc}, {keys}, last line {out.strip().splitlines()[-1:]}")
+        if rc != 0 or '"audit": "pass"' not in out:
+            raise SystemExit(f"[{label}] the audit failed:\n{out[-3000:]}")
+
+        reset_counts()
+        with timer.phase("exact_report"):
+            golden = verify.collect_report(d, device="cuda")
+        total = _summed(total, read_counts())
+        verify.save_golden(golden, f"{d}/golden.json")
+        golden = verify.load_golden(f"{d}/golden.json")
+        reset_counts()
+        with timer.phase("production_report"):
+            prod = verify.collect_report(d, production=True, device="cuda")
+        launches = read_counts()
+        total = _summed(total, launches)
+        check_counts(label, launches,
+                     need=("talker_step", "cp_frame", "packed_matmul", "pre_transformer",
+                           "upsample_stage", "residual_units", "block_upsample"),
+                     idle=("gumbel_sample", "pre_transformer_fused"))
+        errs = verify.compare_reports(prod, golden, tier="tpu-bf16")
+        strict = verify.compare_reports(prod, golden, tier="cpu-fp32")
+        for name, (err, lim) in _checksum_errors(prod, golden, "tpu-bf16").items():
+            log(f"[{label}]   {name}: rel err {err:.3e} (tpu-bf16 limit {lim:g}) "
+                f"{'ok' if err <= lim else 'MISS'}")
+        n_frames = len(golden["frames"])
+        same = sum(a == b for a, b in zip(prod["frames"], golden["frames"]))
+        log(f"[{label}] production report (bf16, default configuration) against the card's "
+            f"exact golden: tpu-bf16 {'PASS' if not errs else errs}; cpu-fp32 fails on "
+            f"{len(strict)} items; frames {len(prod['frames'])} vs {n_frames}, {same} equal "
+            f"({card})")
+
+        # stage by stage: the golden's own frames through the production vocoder
+        with open(f"{d}/speech_tokenizer/config.json") as f:
+            dec = SpeechTokenizerConfig.from_json(f.read()).decoder_config
+        dense = to_torch(ckpt.load_vocoder_checkpoint(
+            safetensors_io.load_file(f"{d}/speech_tokenizer/model.safetensors"), dec,
+            dtype=np.float32), "cuda", torch.float32)
+        kern = dict(dense, kernel=voc.build_vocoder_kernel_params(dense, dec, torch.bfloat16))
+        gf = np.asarray(golden["frames"], np.int64)
+        tf_wav = sanitize_samples(voc.speech_tokenizer_decode(kern, gf[None], dec,
+                                                              device="cuda")[0][0])
+        tf_got = {"checksums": {"wav": verify._stat(tf_wav)}}
+        tf_want = {"checksums": {"wav": golden["checksums"]["wav"]}}
+        tf_errs = verify.compare_reports(tf_got, tf_want, tier="tpu-bf16")
+        tf_err, tf_lim = _checksum_errors(tf_got, tf_want, "tpu-bf16")["wav"]
+        log(f"[{label}] the golden frames through the production vocoder (K4-K6, bf16): wav "
+            f"rel err {tf_err:.3e} (limit {tf_lim:g}) {'PASS' if not tf_errs else 'MISS'}")
+        frame_dep = [e for e in errs if e.startswith(tuple(f"checksum {n!r}"
+                                                          for n in FRAME_CHECKSUMS))]
+        m["gated"] = frame_dep
+        if [e for e in errs if e not in frame_dep] or not strict or (
+                frame_dep and (same == n_frames or tf_errs)):
+            raise SystemExit(f"[{label}] the production report against the golden: "
+                             f"tpu-bf16 {errs}, cpu-fp32 failures {len(strict)}, golden frames "
+                             f"through the production vocoder {tf_errs}")
+        if frame_dep:
+            log(f"[{label}] GATED: {frame_dep} miss(es) only after {n_frames - same} of "
+                f"{n_frames} greedy frames departed; the golden frames pass through the "
+                f"production vocoder")
+
+        with timer.phase("corrupt_report"):
+            broken = _broken_copy(d, f"{d}/broken")
+            bad = verify.collect_report(broken, production=True, device="cuda")
+        bad_errs = verify.compare_reports(bad, golden, tier="tpu-bf16")
+        log(f"[{label}] codec_head.scales x1.5: production report fails tpu-bf16 on "
+            f"{[e.split(':')[0] for e in bad_errs]}")
+        if not bad_errs:
+            raise SystemExit(f"[{label}] the corrupted checkpoint passed the tpu-bf16 tier")
+
+        # speech_tokenizer_decode at B = 2: kernels against the plain vocoder
+        pf = np.asarray(prod["frames"], np.int64)
+        codes = np.stack([pf, pf])
+        codes[1, 2 * len(pf) // 3:] = 0  # stream 1 padded (code 0 = 0 counts for nothing)
+        reset_counts()
+        with timer.phase("speech_tokenizer_decode"):
+            wav, lengths = voc.speech_tokenizer_decode(kern, codes, dec, device="cuda")
+        total = _summed(total, read_counts())
+        pwav, plengths = voc.speech_tokenizer_decode(dense, codes, dec, device="cuda")
+        err = rel_rms(torch.from_numpy(wav), torch.from_numpy(pwav))
+        log(f"[{label}] speech_tokenizer_decode B=2 x {len(pf)} frames, kernels (bf16) vs "
+            f"plain (fp32): rel_rms={err:.3e} (tol {TOL_VOCODER_BF16:g}), lengths "
+            f"{lengths.tolist()} vs {plengths.tolist()}")
+        if not (err <= TOL_VOCODER_BF16 and lengths.tolist() == plengths.tolist()
+                and lengths[1] < lengths[0]):
+            raise SystemExit(f"[{label}] speech_tokenizer_decode disagrees with its plain path")
+        with tempfile.TemporaryDirectory() as tdir:
+            with trace(tdir) as prof:
+                voc.speech_tokenizer_decode(kern, codes[:1], dec, device="cuda")
+            files = [f for f in os.listdir(tdir) if f.endswith(".json")]
+            n_dev = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+            log(f"[{label}] trace() over one production vocoder decode: {files}, "
+                f"{sum(os.path.getsize(f'{tdir}/{f}') for f in files)} bytes, {n_dev} device "
+                f"events")
+            if not files or not n_dev:
+                raise SystemExit(f"[{label}] trace() wrote no trace of the decode")
+
+        # native BPE on the golden text, against the Python path
+        text = f"<|im_start|>assistant\n{verify.GOLDEN_TEXT}<|im_end|>\n<|im_start|>assistant\n"
+        t0 = time.perf_counter()
+        tok = Qwen3Tokenizer(d, native=True)
+        m["native_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = Qwen3Tokenizer(d)  # the default: the Python path
+        m["python_load_s"] = time.perf_counter() - t0
+        ids, py_ids = tok.encode(text), py.encode(text)
+        m["native_bpe"] = tok._native is not None
+        for name, t in (("native", tok), ("python", py)):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                t.encode(text)
+            m[f"{name}_encode_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        log(f"[{label}] native BPE core built and used: {m['native_bpe']}; {len(ids)} ids on "
+            f"the golden text equal the Python path's: {ids == py_ids}; encode "
+            f"{m['native_encode_us']:.1f} us native, {m['python_encode_us']:.1f} us Python "
+            f"(mean of 200, host); tokenizer load {m['native_load_s']:.3f} s native, "
+            f"{m['python_load_s']:.3f} s Python")
+        if ids != py_ids:
+            raise SystemExit(f"[{label}] native BPE ids differ from the Python path's")
+
+        off = qt.Qwen3TTSPipelineConfiguration(use_talker_megakernel=False,
+                                               use_cp_megakernel=False)
+        pl = qt.Qwen3TTSPipeline(d, off, device="cuda")
+        with timer.phase("decode_chunk_batched"):
+            batch_launches, m["batched"] = batched_chunk(pl, card)
+        total = _summed(total, batch_launches)
+        if not batch_launches["packed_matmul"]:
+            raise SystemExit(f"[{label}] decode_chunk_batched launched no K7")
+        del pl
+        torch.cuda.empty_cache()
+    m["timer"] = {k: timer.totals[k] for k in timer.totals}
+    m["phase_s"] = time.perf_counter() - t_phase
+    for line in timer.summary().splitlines():
+        log(f"[{label}] PhaseTimer {line}")
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return total, m
+
+
 TOL_TRAIN = {"loss": 1e-5, "grad": 1e-4, "resume": 1e-6}
 FP32_PEAK = RATE["float32"]
 
@@ -2989,6 +3369,7 @@ def main() -> int:
             f"(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig()) in "
             f"{time.perf_counter() - t0:.1f} s")
         launches["modes"], results["modes"] = phase_modes(card, d)
+    launches["verify"], results["verify"] = phase_verify(card)
     launches["train"], results["train"] = phase_train(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
@@ -3013,7 +3394,7 @@ def main() -> int:
             row["launches"] = launches["sampler_path"][name]
         if name in PLAIN_XLA:
             row["counterpart_of"] = "plain XLA"
-        for path in ("k3_path", "mixed", "prequant", "modes"):
+        for path in ("k3_path", "mixed", "prequant", "modes", "verify"):
             row[f"launches_{path}"] = launches[path][name]
         row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
         row["launches_service"] = launches["service"][name]

@@ -1,6 +1,10 @@
-"""Pure-Python GPT-2/Qwen BPE tokenizer (a copy of
-qwen3_tts_tpu/frontend/tokenizer.py without the optional native BPE core;
-tests pin its ids equal to the original).
+"""GPT-2/Qwen BPE tokenizer (a copy of qwen3_tts_tpu/frontend/tokenizer.py;
+tests pin its ids equal to the original). The merge loop runs in Python.
+`native=True` runs it in the native C++ core instead (frontend/native_bpe.py,
+built by g++ on first use) when that builds and QWEN3TTS_NATIVE_BPE is not
+0; it gives the same ids but is not the default, since it was measured
+slower than the Python path's cached merges on the golden text and is
+unmeasured at a full Qwen vocab.
 
 Behavioral parity with the reference Swift tokenizer
 (reference Qwen3Tokenizer.swift:1-375):
@@ -56,6 +60,7 @@ class Qwen3Tokenizer:
         *,
         vocab: Mapping[str, int] | None = None,
         merges: Iterable[str] | None = None,
+        native: bool = False,
     ):
         self.vocab: dict[str, int] = {}
         self.tokens: dict[int, str] = {}
@@ -63,6 +68,7 @@ class Qwen3Tokenizer:
         self.special_tokens: list[str] = []
         self.loaded = False
         self._cache: dict[str, list[str]] = {}
+        self._native = None
 
         if vocab is not None:
             # Manual init (reference Qwen3Tokenizer.swift:56-70)
@@ -78,6 +84,19 @@ class Qwen3Tokenizer:
                 self.loaded = True
             except (OSError, KeyError, ValueError, json.JSONDecodeError):
                 self.loaded = False
+
+        if self.loaded and native:
+            self._init_native()
+
+    def _init_native(self) -> None:
+        """Attach the C++ BPE core when it builds (native/qbpe.cpp); the
+        pure-Python path below stays the fallback."""
+        from .native_bpe import NativeBpe
+
+        try:
+            self._native = NativeBpe(self.vocab, self.merges)
+        except RuntimeError:  # disabled, or no compiler
+            self._native = None
 
     # -- loading ----------------------------------------------------------
 
@@ -211,7 +230,21 @@ class Qwen3Tokenizer:
 
     def _encode_regular(self, text: str) -> list[int]:
         ids: list[int] = []
-        for token in _SPLIT_PATTERN.findall(text) or [text]:
+        sub_tokens = _SPLIT_PATTERN.findall(text) or [text]
+        if self._native is not None:
+            space_char = "Ġ" if "Ġ" in self.vocab else " "
+            newline_char = "Ċ" if "Ċ" in self.vocab else "\n"
+            for token in sub_tokens:
+                mapped = token.replace(" ", space_char).replace("\n", newline_char)
+                native_ids = self._native.encode_word(mapped)
+                if native_ids is None:
+                    # past the native output cap: the Python path has no
+                    # limit and gives the same ids
+                    ids.extend(self._encode_token_python(token))
+                else:
+                    ids.extend(native_ids)
+            return ids
+        for token in sub_tokens:
             ids.extend(self._encode_token_python(token))
         return ids
 

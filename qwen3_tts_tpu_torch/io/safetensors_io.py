@@ -36,6 +36,16 @@ _DTYPES = {
 _DTYPE_NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 
+def load_header(path: str) -> dict[str, tuple[str, tuple[int, ...]]]:
+    """Only the header: {name: (dtype name, shape)} (the layout audit,
+    io/audit.py, never needs the tensor bytes)."""
+    with open(path, "rb") as f:
+        header_len = struct.unpack("<Q", f.read(8))[0]
+        header = json.loads(f.read(header_len).decode("utf-8"))
+    return {name: (info["dtype"], tuple(info["shape"]))
+            for name, info in header.items() if name != "__metadata__"}
+
+
 def load_file(path: str) -> dict[str, np.ndarray]:
     """Load all tensors as numpy arrays (copies; BF16 widened to float32)."""
     with open(path, "rb") as f:

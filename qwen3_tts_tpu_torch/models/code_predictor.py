@@ -133,3 +133,55 @@ def predict_frame(
         codes.append(sample_group(k, h_last))
         embed_sum = embed_sum + table_row(emb, k, codes[-1], dtype)[None, None]
     return torch.stack(codes), embed_sum, seen_cp
+
+
+def predict_frame_batched(cp_params: dict, code_hidden: torch.Tensor,
+                          code0_embed: torch.Tensor, noise: torch.Tensor | None,
+                          temps: float | torch.Tensor, config: CodePredictorConfig,
+                          forced_codes: torch.Tensor | None = None,
+                          seen_cp: torch.Tensor | None = None,
+                          repetition_penalty: float = 1.05):
+    """Codes 1..15 of B streams' frames (the cp positions are shared, so
+    cp_forward's batch dim applies directly). code_hidden / code0_embed
+    [B, 1, H]; noise [B, 15, V] Gumbel noise of the groups (None: greedy);
+    temps: one temperature or [B]. `seen_cp` [B, 15, V] (updated in place)
+    turns on the repetition penalty, which the serving path, like JAX's and
+    the streaming paths, leaves off. `forced_codes` [B, 15] feeds given
+    codes on (teacher forcing). The heads run in the activations' dtype,
+    as predict_frame's, so a stream's logits are its single-stream ones.
+    Returns (codes [B, 15] int64, embed_sum [B, 1, H])."""
+    ng = config.num_code_groups - 1
+    b = code_hidden.shape[0]
+    dtype, dev = code_hidden.dtype, code_hidden.device
+    shape = (config.num_hidden_layers, b, config.num_key_value_heads, CP_CACHE_LEN,
+             config.head_dim)
+    ck = torch.zeros(shape, dtype=dtype, device=dev)
+    cv = torch.zeros(shape, dtype=dtype, device=dev)
+    emb, heads = cp_params["codec_embedding"], cp_params["lm_head"]
+
+    def emb_rows(k, codes):
+        return table_row(emb, k, codes, dtype)[:, None, :]
+
+    def sample_group(k, h_last):
+        if forced_codes is not None:
+            code = forced_codes[:, k]
+        else:
+            lg = table_matmul(heads, k, h_last[:, 0]).float()
+            code = sample_token(lg, None, 0.0 if noise is None else temps,
+                                seen_mask=None if seen_cp is None else seen_cp[:, k],
+                                repetition_penalty=repetition_penalty,
+                                noise=None if noise is None else noise[:, k])
+        if seen_cp is not None:
+            seen_cp[:, k].scatter_(1, code[:, None], True)
+        return code
+
+    x0 = torch.cat([code_hidden, code0_embed], dim=1)
+    h_last, ck, cv = cp_forward(cp_params, x0, ck, cv, 0, config)
+    codes = [sample_group(0, h_last)]
+    embed_sum = code0_embed + emb_rows(0, codes[0])
+    for k in range(1, ng):
+        h_last, ck, cv = cp_forward(cp_params, emb_rows(k - 1, codes[-1]), ck, cv, k + 1,
+                                    config)
+        codes.append(sample_group(k, h_last))
+        embed_sum = embed_sum + emb_rows(k, codes[-1])
+    return torch.stack(codes, dim=1), embed_sum

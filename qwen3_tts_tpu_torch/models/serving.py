@@ -48,7 +48,7 @@ import torch
 from ..config import Qwen3TTSConfig
 from ..ops.attention import gqa_attention_full
 from ..ops.cuda import gumbel_sampler, packed_matmul, quant_matmul
-from ..ops.linear import linear, table_matmul, table_row
+from ..ops.linear import linear
 from ..ops.norms import rms_norm
 from ..ops.sampling import NEG_INF, sample_token
 from ..utils.postprocess import sanitize_samples
@@ -107,95 +107,6 @@ def _to_host(t: torch.Tensor):
         return host.numpy()
 
     return pull
-
-
-# ---------------------------------------------------------------------------
-# Batched model steps (shared slot, per-stream positions)
-# ---------------------------------------------------------------------------
-
-
-def _attention_decode_batched(q, k_cache, v_cache, cache_pos, window_start, scale):
-    """GQA decode with per-stream validity. q [B, Hq, 1, D]; caches [B, Hkv,
-    C, D]; cache_pos [B, C]; window_start [B]."""
-    b, hq, _, d = q.shape
-    hkv = k_cache.shape[1]
-    qg = q.reshape(b, hkv, hq // hkv, d).float()
-    scores = torch.einsum("bkgd,bkcd->bkgc", qg, k_cache.float()) * scale
-    valid = (cache_pos >= 0) & (cache_pos >= window_start[:, None])
-    scores = torch.where(valid[:, None, None, :], scores, float(NEG_INF))
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    return torch.einsum("bkgc,bkcd->bkgd", probs, v_cache).reshape(b, hq, 1, d)
-
-
-def talker_decode_step_batched(params: dict, embed: torch.Tensor, cache: dict,
-                               positions: torch.Tensor, slot: torch.Tensor,
-                               window_start: torch.Tensor,
-                               config: Qwen3TTSConfig) -> tuple[torch.Tensor, dict]:
-    """One lockstep decode step for B streams. embed [B, 1, H]; positions
-    [B] absolute per stream; slot: the ring slot all streams share (0-d);
-    window_start [B]. cache {"k", "v": [L, B, Hkv, C, D], "pos": [B, C]} is
-    written in place at the slot; returns (h [B, 1, H], cache)."""
-    b = embed.shape[0]
-    nq, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
-    eps = config.rms_norm_eps
-    scale = 1.0 / float(hd) ** 0.5
-    cos, sin = talker_mod.rope_cos_sin(config, positions[:, None])
-    slot = slot.reshape(1)
-    cache["pos"].index_copy_(1, slot, positions[:, None].to(cache["pos"].dtype))
-    h = embed
-    for i in range(config.num_hidden_layers):
-        lp = talker_mod._layer(params["layers"], i)
-        x = rms_norm(h, lp["input_layernorm"]["w"], eps)
-        q, k, v = talker_mod.layer_qkv(lp, x, cos, sin, nq, nkv, hd, eps)
-        cache["k"][i].index_copy_(2, slot, k)
-        cache["v"][i].index_copy_(2, slot, v)
-        attn = _attention_decode_batched(q, cache["k"][i], cache["v"][i], cache["pos"],
-                                         window_start, scale)
-        h = h + linear(lp["o_proj"], attn.transpose(1, 2).reshape(b, 1, -1))
-        x2 = rms_norm(h, lp["post_attention_layernorm"]["w"], eps)
-        h = h + linear(lp["down_proj"], talker_mod.swiglu(lp, x2, config.intermediate_size))
-    return rms_norm(h, params["norm"]["w"], eps), cache
-
-
-def predict_frame_batched(cp_params: dict, code_hidden: torch.Tensor,
-                          code0_embed: torch.Tensor, noise: torch.Tensor | None,
-                          temps: torch.Tensor, config,
-                          forced_codes: torch.Tensor | None = None):
-    """Codes 1..15 of B streams' frames (the cp positions are shared, so
-    cp_forward's batch dim applies directly). code_hidden / code0_embed
-    [B, 1, H]; noise [B, 15, V] Gumbel noise of the groups (None: greedy);
-    temps [B]. No repetition penalty, as in the JAX serving path and the
-    streaming paths. `forced_codes` [B, 15] feeds given codes on (teacher
-    forcing). Returns (codes [B, 15] int64, embed_sum [B, 1, H])."""
-    ng = config.num_code_groups - 1
-    b = code_hidden.shape[0]
-    dtype, dev = code_hidden.dtype, code_hidden.device
-    shape = (config.num_hidden_layers, b, config.num_key_value_heads, cp_mod.CP_CACHE_LEN,
-             config.head_dim)
-    ck = torch.zeros(shape, dtype=dtype, device=dev)
-    cv = torch.zeros(shape, dtype=dtype, device=dev)
-    emb, heads = cp_params["codec_embedding"], cp_params["lm_head"]
-
-    def emb_rows(k, codes):
-        return table_row(emb, k, codes, dtype)[:, None, :]
-
-    def sample_group(k, h_last):
-        if forced_codes is not None:
-            return forced_codes[:, k]
-        lg = table_matmul(heads, k, h_last[:, 0].float())
-        return sample_token(lg, None, 0.0 if noise is None else temps,
-                            noise=None if noise is None else noise[:, k])
-
-    x0 = torch.cat([code_hidden, code0_embed], dim=1)
-    h_last, ck, cv = cp_mod.cp_forward(cp_params, x0, ck, cv, 0, config)
-    codes = [sample_group(0, h_last)]
-    embed_sum = code0_embed + emb_rows(0, codes[0])
-    for k in range(1, ng):
-        h_last, ck, cv = cp_mod.cp_forward(cp_params, emb_rows(k - 1, codes[-1]), ck, cv,
-                                           k + 1, config)
-        codes.append(sample_group(k, h_last))
-        embed_sum = embed_sum + emb_rows(k, codes[-1])
-    return torch.stack(codes, dim=1), embed_sum
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +216,7 @@ def lockstep_step(params: dict, cp_params: dict, state: dict, temps: torch.Tenso
     emit = active & ~stop
 
     code0_embed = talker_mod.encode_audio(params, code0[:, None])
-    codes15, embed_sum = predict_frame_batched(
+    codes15, embed_sum = cp_mod.predict_frame_batched(
         cp_params, state["h_last"], code0_embed,
         None if noise is None else noise[:, 1:, :cc.vocab_size], temps, cc,
         forced_codes=None if forced is None else forced[:, 1:])
@@ -320,8 +231,8 @@ def lockstep_step(params: dict, cp_params: dict, state: dict, temps: torch.Tenso
     # the shared ring slot wraps as the single-stream path's does; the window
     # mask on absolute positions keeps stale slots out
     slot = (state["p_pad"] + state["step"]) % statics.capacity
-    h, _ = talker_decode_step_batched(params, input_embed, state["cache"], positions, slot,
-                                      state["window_start"], cfg)
+    h, _ = talker_mod.talker_decode_step(params, input_embed, state["cache"], positions,
+                                         state["window_start"], cfg, slot=slot)
     logits = talker_mod.codec_head(params, h)[:, 0]
 
     step = state["step"] + 1

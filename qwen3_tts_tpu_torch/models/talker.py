@@ -3,8 +3,9 @@ embeddings (counterpart of qwen3_tts_tpu/models/talker.py).
 
 Layer weights are stacked on a leading layer axis; the KV cache is a
 preallocated ring {"k", "v": [L, B, Hkv, C, D], "pos": [C]} written in place
-at slot position % C, and decode attention masks keys by absolute position
-against the window start (the reference's 192-token trim schedule). RMSNorm
+at slot position % C (streams side by side keep "pos" [B, C] and a position
+each), and decode attention masks keys by absolute position against the
+window start (the reference's 192-token trim schedule). RMSNorm
 runs in fp32; q/k get a per-head RMSNorm before RoPE; interleaved MRoPE when
 config.mrope_section is set.
 """
@@ -127,27 +128,33 @@ def talker_prefill(params: dict, embeds: torch.Tensor, cache: dict,
 
 def talker_decode_step(params: dict, embed: torch.Tensor, cache: dict,
                        position: torch.Tensor, window_start: torch.Tensor,
-                       config: Qwen3TTSConfig) -> tuple[torch.Tensor, dict]:
-    """One decode step. embed [B, 1, H]; position / window_start are 0-d
-    int64 tensors on the device (no host sync). Writes this token's K/V at
-    ring slot position % C in place and attends over [window_start,
-    position]."""
+                       config: Qwen3TTSConfig,
+                       slot: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """One decode step, on the device with no host sync. embed [B, 1, H].
+    One stream: position / window_start 0-d int64 tensors, cache["pos"] [C].
+    B streams side by side: both [B], cache["pos"] [B, C], each stream at
+    its own position and window. Writes this token's K/V in place at ring
+    slot `slot` (0-d, shared by all streams, or [B]; position % C by
+    default) and attends over [window_start, position]."""
     b = embed.shape[0]
     nq, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim
     scale = 1.0 / float(hd) ** 0.5
-    capacity = cache["pos"].shape[0]
-    slot = (position % capacity).reshape(1)
-    cos, sin = rope_cos_sin(config, position.reshape(1, 1).expand(b, 1))
-    cache["pos"].index_copy_(0, slot, position.reshape(1))
+    capacity = cache["pos"].shape[-1]
+    pos = cache["pos"].view(-1, capacity)  # [1 or B, C]
+    positions = position.reshape(-1)
+    slots = (positions % capacity if slot is None else slot.reshape(-1)).expand(pos.shape[0])
+    cos, sin = rope_cos_sin(config, positions[:, None].expand(b, 1))
+    pos.scatter_(1, slots[:, None], positions[:, None].to(pos.dtype))
+    rows = slots[:, None, None, None].expand(b, nkv, 1, hd)
+    key_pos, start = pos[:, None, None, :], window_start.reshape(-1, 1, 1, 1)
     h = embed
     for i in range(config.num_hidden_layers):
         lp = _layer(params["layers"], i)
         x = rms_norm(h, lp["input_layernorm"]["w"], config.rms_norm_eps)
         q, k, v = layer_qkv(lp, x, cos, sin, nq, nkv, hd, config.rms_norm_eps)
-        cache["k"][i].index_copy_(2, slot, k)
-        cache["v"][i].index_copy_(2, slot, v)
-        attn = gqa_attention_decode(q, cache["k"][i], cache["v"][i], cache["pos"],
-                                    window_start, scale)
+        cache["k"][i].scatter_(2, rows, k)
+        cache["v"][i].scatter_(2, rows, v)
+        attn = gqa_attention_decode(q, cache["k"][i], cache["v"][i], key_pos, start, scale)
         h = h + linear(lp["o_proj"], attn.transpose(1, 2).reshape(b, 1, -1))
         x2 = rms_norm(h, lp["post_attention_layernorm"]["w"], config.rms_norm_eps)
         h = h + linear(lp["down_proj"], swiglu(lp, x2, config.intermediate_size))

@@ -13,6 +13,8 @@ versions on the CPU).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -177,3 +179,26 @@ def chunked_decode(params: dict, codes: np.ndarray, cfg: TokenizerDecoderConfig,
     for r, (j, i) in enumerate(rows):
         out[j, i * s:(i + 1) * s] = wav[r]
     return out[:, : t * up]
+
+
+def speech_tokenizer_decode(params: dict, audio_codes, cfg: TokenizerDecoderConfig, *,
+                            device, chunk_size: int | None = None,
+                            left_context: int | None = None,
+                            decode_upsample_rate: int | None = None
+                            ) -> tuple[np.ndarray, np.ndarray]:
+    """The speech tokenizer's decode: audio_codes [B, T, nq] -> (wav [B, T *
+    upsample] float32, lengths [B] int64), where a frame counts toward a
+    stream's length iff its code 0 is > 0. Runs chunked_decode (the kernels
+    K4, K5, K6 and the blocks' upsample when params carry a "kernel"
+    subtree); chunk size and left context default to the
+    QWEN3TTS_DECODE_CHUNK_SIZE / QWEN3TTS_DECODE_LEFT_CONTEXT overrides, else
+    100 and 10."""
+    audio_codes = np.asarray(audio_codes)
+    chunk = chunk_size or int(os.environ.get("QWEN3TTS_DECODE_CHUNK_SIZE", "100"))
+    ctx = (left_context if left_context is not None
+           else int(os.environ.get("QWEN3TTS_DECODE_LEFT_CONTEXT", "10")))
+    up = decode_upsample_rate or cfg.total_upsample
+    wav = chunked_decode(params, audio_codes.transpose(0, 2, 1), cfg, device=device,
+                         chunk_size=chunk, left_context=ctx)
+    lengths = (audio_codes[:, :, 0] > 0).sum(axis=1).astype(np.int64) * up
+    return wav, lengths

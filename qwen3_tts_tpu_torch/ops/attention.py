@@ -33,7 +33,9 @@ def causal_mask(l: int, device=None, offset: int = 0, keys: int | None = None) -
 
 def gqa_attention_decode(q, k_cache, v_cache, cache_pos, window_start, scale: float):
     """q [B, Hq, 1, D]; caches [B, Hkv, C, D]; cache_pos [C] absolute
-    positions (-1 empty). Keys with 0 <= pos and pos >= window_start count."""
+    positions (-1 empty), or [B, 1, 1, C] with window_start [B, 1, 1, 1]
+    for streams side by side. Keys with 0 <= pos and pos >= window_start
+    count."""
     b, hq, _, d = q.shape
     hkv = k_cache.shape[1]
     qg = q.reshape(b, hkv, hq // hkv, d).float()

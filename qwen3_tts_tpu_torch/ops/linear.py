@@ -87,7 +87,7 @@ def _dequant_rows(rows8, scales, biases) -> torch.Tensor:
 def _rows(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """t[ids] through index_select: indexing with a 0-d device tensor would
     read it back to the host."""
-    return t.index_select(0, ids.reshape(-1)).reshape(*ids.shape, *t.shape[1:])
+    return t.index_select(0, ids.reshape(-1)).reshape(ids.shape + t.shape[1:])
 
 
 def _packed_rows(params: dict, ids: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,12 @@ def talker_valid_mask(vocab_size: int, codebook_size: int = 2048,
     return (idx < codebook_size) | (idx == pad_id) | (idx == eos_id)
 
 
+def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Gumbel noise of `shape` from uniforms drawn from `generator`."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 def sample_token(
     logits: torch.Tensor,
     generator: torch.Generator | None,
@@ -49,7 +55,6 @@ def sample_token(
         lg = torch.where(valid_mask, lg, float(NEG_INF))
     if per_row or hot:
         if noise is None:
-            u = torch.rand(lg.shape, generator=generator, device=lg.device)
-            noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+            noise = gumbel_noise(lg.shape, generator, lg.device)
         lg = lg + (torch.where(hot, noise, 0.0) if per_row else noise)
     return torch.argmax(lg, dim=-1)

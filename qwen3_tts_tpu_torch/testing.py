@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -134,6 +135,27 @@ class _RandPool:
         return np.tile(self._pool, reps)[self._off: self._off + n].reshape(shape)
 
 
+class _ShapeOnly(np.ndarray):
+    """An array of a zero-byte dtype: it has a shape and costs no memory
+    whatever the shape. Scaling returns it unchanged; stacking, slicing and
+    transposes work as on any array. The audit's manifests (io/audit.py)
+    run the tree builders and the exporters over these."""
+
+    def __mul__(self, other):
+        return self
+
+
+def shape_only(shape) -> np.ndarray:
+    return np.zeros(tuple(shape), dtype=np.dtype([])).view(_ShapeOnly)
+
+
+class ShapePool:
+    """Stands in for _RandPool in the tree builders: shape-only leaves."""
+
+    def standard_normal(self, shape) -> np.ndarray:
+        return shape_only(shape)
+
+
 def _np_dense(rng, out, inn, bias=False):
     p = {"w": rng.standard_normal((out, inn)) * np.float32(0.02)}
     if bias:
@@ -158,9 +180,10 @@ def _np_layer_tree(rng, h, nq, nkv, hd, inter, nl):
     }
 
 
-def random_host_talker_params(config: Qwen3TTSConfig, seed: int = 0) -> dict:
-    """Numpy random talker params (fused q/k/v and gate/up)."""
-    rng = _RandPool(seed)
+def random_host_talker_params(config: Qwen3TTSConfig, seed: int = 0, rng=None) -> dict:
+    """Numpy random talker params (fused q/k/v and gate/up); `rng` replaces
+    the seeded pool (ShapePool: shapes only)."""
+    rng = rng or _RandPool(seed)
     c = config
     return {
         "text_embedding": {
@@ -183,9 +206,9 @@ def random_host_talker_params(config: Qwen3TTSConfig, seed: int = 0) -> dict:
     }
 
 
-def random_host_cp_params(config: Qwen3TTSConfig, seed: int = 1) -> dict:
-    """Numpy random code-predictor params."""
-    rng = _RandPool(seed)
+def random_host_cp_params(config: Qwen3TTSConfig, seed: int = 1, rng=None) -> dict:
+    """Numpy random code-predictor params (`rng` as above)."""
+    rng = rng or _RandPool(seed)
     cc = config.code_predictor_config
     ng = cc.num_code_groups - 1
     params = {
@@ -215,9 +238,9 @@ def random_vocoder_params(
     """Random dense vocoder tree (models/vocoder.py layout) as fp32 torch
     tensors on `device`, drawn from a seeded torch.Generator there. Norm
     gains are 1; LayerScale and ConvNeXt gamma are 0.1 so every branch
-    contributes to the output."""
+    contributes to the output. On the meta device: shapes only."""
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
 
     def rnd(*shape, scale=0.02):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -323,9 +346,11 @@ def _np_conv(rng, k, cin, cout) -> dict:
     return {"w": w, "b": np.zeros((cout,), np.float32)}
 
 
-def random_speaker_encoder_params(config: SpeakerEncoderConfig, seed: int = 3) -> dict:
-    """Numpy random ECAPA tree (models/speaker_encoder.py layout)."""
-    rng = _RandPool(seed)
+def random_speaker_encoder_params(config: SpeakerEncoderConfig, seed: int = 3,
+                                  rng=None) -> dict:
+    """Numpy random ECAPA tree (models/speaker_encoder.py layout; `rng` as
+    in random_host_talker_params)."""
+    rng = rng or _RandPool(seed)
     ch, kz, r = config.enc_channels, config.enc_kernel_sizes, config.enc_res2net_scale
 
     def se_res2net(cin, cout, k):
@@ -349,9 +374,11 @@ def random_speaker_encoder_params(config: SpeakerEncoderConfig, seed: int = 3) -
     }
 
 
-def random_audio_encoder_params(cfg: TokenizerEncoderConfig, seed: int = 4) -> dict:
-    """Numpy random audio-encoder tree (models/audio_encoder.py layout)."""
-    rng = _RandPool(seed)
+def random_audio_encoder_params(cfg: TokenizerEncoderConfig, seed: int = 4,
+                                rng=None) -> dict:
+    """Numpy random audio-encoder tree (models/audio_encoder.py layout;
+    `rng` as in random_host_talker_params)."""
+    rng = rng or _RandPool(seed)
     nf, h = cfg.num_filters, cfg.hidden_size
     seanet: dict = {"initial_conv": _np_conv(rng, cfg.kernel_size, cfg.audio_channels, nf),
                     "stages": []}
@@ -402,7 +429,9 @@ def random_audio_encoder_params(cfg: TokenizerEncoderConfig, seed: int = 4) -> d
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        return shape_only(x.shape) if x.is_meta else x.detach().cpu().float().numpy()
+    return np.asarray(x)
 
 
 def export_talker_checkpoint(params: dict, cp_params: dict, config: Qwen3TTSConfig) -> dict:
@@ -737,6 +766,51 @@ def write_model_dir(
     return params, cp_params, voc
 
 
+def _pack_talker_weights(path: str, widths, group_size: int) -> None:
+    """Re-store every eligible talker `.weight` of path/model.safetensors (2-D,
+    not a norm, input width a multiple of `group_size`) packed in MLX's
+    layout (uint32 `.weight`, fp32 `.scales` / `.biases`), cycling through
+    `widths` in key order (a width that does not pack the row falls back to
+    4); every other key keeps its stored dtype. config.json then declares
+    `"quantization": {"bits": widths[0], "group_size": ...}`, so the
+    loaders keep the linears packed."""
+    main_path = os.path.join(path, "model.safetensors")
+    stored = safetensors_io.load_header(main_path)
+    weights = safetensors_io.load_file(main_path)
+    out, packing = {}, {}
+    i = 0
+    # numpy releases the GIL in the quantizer's array work: the weights
+    # pack on a thread each (a 0.6B talker's ~0.8 G values at full width)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        for key in sorted(weights):
+            a = np.asarray(weights[key])
+            if (key.startswith("talker.") and key.endswith(".weight") and a.ndim == 2
+                    and "norm" not in key and a.shape[-1] % group_size == 0):
+                bits = widths[i % len(widths)]
+                i += 1
+                if (a.shape[-1] * bits) % 32:
+                    bits = 4
+                packing[key] = pool.submit(quantize_np, a.astype(np.float32), bits, group_size)
+                out[key] = None  # keeps the key order
+            elif stored[key][0] == "BF16":  # bf16 is exact in the fp32 it was read as
+                out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+            else:
+                out[key] = a
+        for key, job in packing.items():
+            packed, scales, biases = job.result()
+            stem = key[: -len(".weight")]
+            out[key] = packed
+            out[f"{stem}.scales"] = scales
+            out[f"{stem}.biases"] = biases
+    safetensors_io.save_file(out, main_path)
+    cfg_path = os.path.join(path, "config.json")
+    with open(cfg_path, encoding="utf-8") as f:
+        raw = json.load(f)
+    raw["quantization"] = {"bits": widths[0], "group_size": group_size}
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump(raw, f)
+
+
 def write_prequantized_model_dir(
     path,
     config: Qwen3TTSConfig,
@@ -746,38 +820,62 @@ def write_prequantized_model_dir(
     group_size: int = 64,
     seed: int = 0,
 ):
-    """write_model_dir, then every eligible talker `.weight` (2-D, not a norm,
-    input width a multiple of `group_size`) re-stored packed in MLX's layout
-    (uint32 `.weight`, fp32 `.scales` / `.biases`), cycling through `widths`
-    (a width that does not pack the row falls back to 4), and config.json
-    declares `"quantization": {"bits": widths[0], "group_size": ...}`, so the
-    loaders keep the linears packed. Returns write_model_dir's dense trees."""
+    """write_model_dir, then the talker's eligible linears and tables packed
+    (_pack_talker_weights: `widths` cycled, group `group_size`). Returns
+    write_model_dir's dense trees."""
     path = os.fspath(path)
     ret = write_model_dir(path, config, decoder_config, seed=seed)
-    main_path = os.path.join(path, "model.safetensors")
-    weights = safetensors_io.load_file(main_path)
-    out = {}
-    i = 0
-    for key in sorted(weights):
-        a = np.asarray(weights[key])
-        if (key.startswith("talker.") and key.endswith(".weight") and a.ndim == 2
-                and "norm" not in key and a.shape[-1] % group_size == 0):
-            bits = widths[i % len(widths)]
-            i += 1
-            if (a.shape[-1] * bits) % 32:
-                bits = 4
-            packed, scales, biases = quantize_np(a.astype(np.float32), bits, group_size)
-            stem = key[: -len(".weight")]
-            out[key] = packed
-            out[f"{stem}.scales"] = scales
-            out[f"{stem}.biases"] = biases
-        else:  # stored as write_model_dir stored it (bf16 is exact in fp32)
-            out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
-    safetensors_io.save_file(out, main_path)
-    cfg_path = os.path.join(path, "config.json")
-    with open(cfg_path, encoding="utf-8") as f:
-        raw = json.load(f)
-    raw["quantization"] = {"bits": widths[0], "group_size": group_size}
-    with open(cfg_path, "w", encoding="utf-8") as f:
-        json.dump(raw, f)
+    _pack_talker_weights(path, widths, group_size)
+    return ret
+
+
+def golden_talker_config() -> Qwen3TTSConfig:
+    """The JAX package's tiny talker (qwen3_tts_tpu/testing.py
+    tiny_talker_config): text hidden 96 and a 48-wide code predictor, so at
+    group 64 the text embedding, the text projection and most cp linears
+    stay dense beside the packed ones."""
+    return tiny_talker_config(
+        text_hidden_size=96,
+        code_predictor_config=CodePredictorConfig(
+            hidden_size=48, num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, head_dim=12, intermediate_size=96, vocab_size=2048,
+            num_code_groups=16,
+        ),
+    )
+
+
+def write_golden_model_dir(
+    path,
+    config: Qwen3TTSConfig | None = None,
+    decoder_config: TokenizerDecoderConfig | None = None,
+    *,
+    widths=(4, 6, 8),
+    group_size: int = 64,
+    seed: int = 0,
+):
+    """The reference-format checkpoint of the convert-and-verify harness
+    (io/verify.py), with every storage quirk of a real one (counterpart of
+    qwen3_tts_tpu/testing.py write_golden_model_dir):
+
+    - pre-quantized uint32 `.weight` / `.scales` / `.biases` triples at
+      mixed widths (`widths` cycled over the eligible talker weights)
+    - dense stragglers where a width is not a multiple of the group
+    - config.json's `quantization` block (the keep-packed load path)
+    - `speaker_encoder.*` in the main file, `encoder.*` and the RVQ EMA stats
+      (cluster_usage / embedding_sum) in speech_tokenizer/
+
+    With no config: the JAX package's tiny dims (golden_talker_config, and
+    the tiny decoder, speaker and audio-encoder configs), as its golden dir
+    has; with one (e.g. Qwen3TTSConfig.standard()), the speaker and audio
+    encoders at their full-width configs (write_model_dir's defaults).
+    Weights come from numpy seeds, so the bytes are not the JAX writer's
+    (jax.random). Returns write_model_dir's dense trees."""
+    path = os.fspath(path)
+    tiny = config is None
+    ret = write_model_dir(path, golden_talker_config() if tiny else config,
+                          decoder_config or tiny_decoder_config(), seed=seed,
+                          with_encoders=True,
+                          speaker_config=tiny_speaker_config() if tiny else None,
+                          encoder_config=tiny_encoder_config() if tiny else None)
+    _pack_talker_weights(path, widths, group_size)
     return ret

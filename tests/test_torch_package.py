@@ -1,5 +1,7 @@
 """The port's package rules, checked without a model: it imports with jax,
-optax, orbax and the JAX package made unimportable, and CUDA asked for on a
+optax, orbax and the JAX package made unimportable (the checkpoint tools,
+the native BPE binding, profiling and their two scripts included), and CUDA
+asked for on a
 host without it raises before any model file is read or any process group
 is joined."""
 
@@ -24,7 +26,15 @@ def test_package_imports_without_jax():
         "    sys.modules[name] = None\n"
         "import qwen3_tts_tpu_torch\n"
         "from qwen3_tts_tpu_torch import cli, convert, pipeline, server, service, testing\n"
-        "from qwen3_tts_tpu_torch.models import prompt, serving\n"
+        "from qwen3_tts_tpu_torch.models import generate, prompt, serving, vocoder\n"
+        "from qwen3_tts_tpu_torch.io import audit, verify\n"
+        "from qwen3_tts_tpu_torch.frontend import native_bpe\n"
+        "from qwen3_tts_tpu_torch.utils import profiling\n"
+        "assert generate.stack_states and generate.decode_chunk_batched\n"
+        "assert vocoder.speech_tokenizer_decode and testing.write_golden_model_dir\n"
+        "import runpy\n"
+        "for s in ('torch_audit_checkpoint', 'torch_verify_checkpoint'):\n"
+        "    runpy.run_path(f'scripts/{s}.py', run_name='not_main')\n"
         "from qwen3_tts_tpu_torch.parallel import checkpoint, dryrun, sharding, train\n"
         "from qwen3_tts_tpu_torch.ops.cuda import _build, pretransformer_kernel, "
         "quant_matmul, upsample_kernel, vocoder_kernels\n"

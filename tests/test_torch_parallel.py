@@ -65,17 +65,40 @@ def test_tp_divisibility_guard():
 
 
 HEADS_8_4 = {"num_attention_heads": 8, "num_key_value_heads": 4}
+# world size -> its meshes (tp, sp, overrides), each world size's run in one
+# spawned group of processes
+CASES = {
+    "tp2": (2, (2, 1, {})),
+    "dp2_tp2": (4, (2, 1, {})),
+    "tp4": (4, (4, 1, HEADS_8_4)),
+    "sp2_tp2": (4, (2, 2, {})),
+}
+MESHES = {"tp2": {"dp": 1, "tp": 2}, "dp2_tp2": {"dp": 2, "tp": 2},
+          "tp4": {"dp": 1, "tp": 4}, "sp2_tp2": {"dp": 1, "sp": 2, "tp": 2}}
 
 
-@pytest.mark.parametrize("world,tp,sp,overrides,mesh", [
-    (2, 2, 1, {}, {"dp": 1, "tp": 2}),
-    (4, 2, 1, {}, {"dp": 2, "tp": 2}),
-    (4, 4, 1, HEADS_8_4, {"dp": 1, "tp": 4}),
-    (4, 2, 2, {}, {"dp": 1, "sp": 2, "tp": 2}),
-], ids=["tp2", "dp2_tp2", "tp4", "sp2_tp2"])
-def test_sharded_step_matches_single_process(world, tp, sp, overrides, mesh):
-    out = dryrun.run(world, tp, sp, **overrides)
-    assert out["mesh"] == mesh
+@pytest.fixture(scope="module")
+def dry_runs():
+    """case id -> dryrun output, each world size's meshes run once, in one
+    group (two spawns for the four cases), when a case first asks."""
+    done: dict = {}
+
+    def get(case: str) -> dict:
+        world = CASES[case][0]
+        if case not in done:
+            ids = [c for c, (w, _) in CASES.items() if w == world]
+            outs = dryrun.run_meshes(world, [CASES[c][1] for c in ids], timeout_s=120.0)
+            done.update(zip(ids, outs))
+        return done[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sharded_step_matches_single_process(case, dry_runs):
+    out = dry_runs(case)
+    assert out["mesh"] == MESHES[case]
+    overrides = CASES[case][1][2]
 
     config, talker, cp, batch = dryrun.problem(**overrides)
     both = {"talker": talker, "cp": cp}

@@ -22,6 +22,7 @@ from qwen3_tts_tpu.models import talker as jtalker
 from qwen3_tts_tpu.ops.quant import apply_int8_quantization as j_int8
 from qwen3_tts_tpu_torch import pipeline as tpipe
 from qwen3_tts_tpu_torch.convert import to_torch
+from qwen3_tts_tpu_torch.models import code_predictor as tcp
 from qwen3_tts_tpu_torch.models import generate as tgen
 from qwen3_tts_tpu_torch.models import serving as tsrv
 from qwen3_tts_tpu_torch.models import talker as ttalker
@@ -93,9 +94,9 @@ def test_batched_talker_step_and_frame_match_jax(models):
         jnp.asarray(positions), jnp.int32(slot), jnp.asarray(window), jcfg)
     tcache = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy()),
               "pos": torch.from_numpy(pos.astype(np.int64))}
-    th, tcache = tsrv.talker_decode_step_batched(
+    th, tcache = ttalker.talker_decode_step(
         ttp, torch.from_numpy(embed), tcache, torch.from_numpy(positions).long(),
-        torch.tensor(slot), torch.from_numpy(window).long(), tcfg)
+        torch.from_numpy(window).long(), tcfg, slot=torch.tensor(slot))
     assert rel_rms(th, jh) <= REL
     assert rel_rms(ttalker.codec_head(ttp, th), jtalker.codec_head(jtp, jh)) <= REL
     for name in ("k", "v"):
@@ -108,7 +109,7 @@ def test_batched_talker_step_and_frame_match_jax(models):
     jcodes, jsum = jsrv.predict_frame_batched(
         jcpp, jnp.asarray(hidden), jnp.asarray(code0_embed), keys, jnp.float32(0.0),
         jcfg.code_predictor_config)
-    tcodes, tsum = tsrv.predict_frame_batched(
+    tcodes, tsum = tcp.predict_frame_batched(
         tcpp, torch.from_numpy(hidden), torch.from_numpy(code0_embed), None,
         torch.zeros(b), tcfg.code_predictor_config)
     np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
