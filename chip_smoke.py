@@ -100,14 +100,15 @@ non-zero):
                 stream teacher-forced against B = 1 on its own frames;
                 first PCM byte per request, serving RTF and frames/s over
                 the burst, warmup seconds
-  k3-pipeline - the same with the megakernels off (every linear on K3);
-                then 16 lockstep steps at B = 8 from one graph (K3's
+  k3-pipeline - the same with the megakernels off (every linear on K3),
+                24 frames (host-bound: cut from 96 for time); then 16
+                lockstep steps at B = 8 from one graph (K3's
                 wrapper counts the warm-up and the capture, twice a step's
                 launches at M = 8 and 16; the replays' K3 kernels are
                 counted by name in a profile of 5 replays: a step's
                 launches each)
   mixed-pipeline - runtime_quantization_mode="mixed_4_6" with the
-                megakernels off on the same dir: every talker and
+                megakernels off on the same dir, 24 frames: every talker and
                 code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle; a
                 decode chunk with no host sync, a profile of the frame loop,
                 and the prefill logits with K7 against those with its plain
@@ -150,6 +151,26 @@ non-zero):
                 chunk; the native BPE core against the Python path; a
                 PhaseTimer over the stages and a trace() window over one
                 vocoder decode
+  tp          - tensor-parallel inference at 0.6B, full width and depth, in
+                the dense bf16 configuration (no runtime quantization, K1
+                off): two spawned ranks share the card over gloo at tp = 2
+                (8 / 4 heads and 1,536 MLP columns a rank); generate() of
+                48 greedy frames on every rank (K2 once a frame on each, K4,
+                K5, K6 and the blocks' upsample on the vocode), teacher-
+                forced against the unsharded run (TOL_TP; the same weights
+                in fp32 at TOL["float32"]), free-running departures only at
+                a near tie (code 0 within NEAR_TIE, a code-predictor code
+                within NEAR_TIE_CP); the serving cycle at B = 8
+                (two 6-step chunks, park_slot, admit_stream, a chunk), eager,
+                teacher-forced against the unsharded eager step; a dp
+                vocode of codes [8, 16, 110] split 4 + 4 against the
+                unsharded decode; TTSService with rank 0 serving and rank 1
+                following (a burst of 3, one arrival into the running batch,
+                24 frames each) against the unsharded service; ms a frame
+                and a step with all-reduces counted, sharded and unsharded;
+                a one-process NCCL tp = 1 mesh through the sharded code,
+                its frames the unsharded run's; NCCL tp = 2 across cards
+                when the machine has two or more (else said not run)
   train       - the joint TTS train step (parallel/train.py) at 0.6B, full
                 depth, fp32 params from a seed, B = 2, T = 256, TF32 off:
                 five steps with remat off and on (the loss finite and
@@ -166,10 +187,10 @@ every path: "launches" on the pipeline phase, "launches_<path>" on the
 others, "launches_serving" on the serving runs, "launches_service" on
 the service's traffic, "launches_verify" on the verify phase and
 "launches_train" on the train phase, 0 for
-every kernel: the wrappers' calls, eager and captured, not the graph
-replays; K7's row also has its library call's time, torch.
-_weight_int4pack_mm at its 4-bit shapes, beside its own there) and the
-last is {"ok": true, "device": {...}}.
+every kernel, and "launches_tp" on the tp phase's generate() on rank 0:
+the wrappers' calls, eager and captured, not the graph replays; K7's
+row also has its library call's time, torch._weight_int4pack_mm at its
+4-bit shapes, beside its own there) and the last is {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
 again by replaying a CUDA graph of it (device time, without Python's
@@ -182,6 +203,7 @@ the tensor cores, 1,979 TOP/s int8).
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import re
 import subprocess
@@ -1294,9 +1316,9 @@ def _counting(gen_mod):
 
 
 def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, ...],
-                 idle: tuple[str, ...]):
-    """Load, generate (96 frames) and stream on one configuration; returns
-    (pipeline, launch counts of this run, metrics)."""
+                 idle: tuple[str, ...], frames: int = 96):
+    """Load, generate (`frames` frames) and stream on one configuration;
+    returns (pipeline, launch counts of this run, metrics)."""
     import torch
 
     import qwen3_tts_tpu_torch as qt
@@ -1313,7 +1335,7 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
         load_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        audio = pl.generate(TEXT, speaker="aiden", max_tokens=96, seed=0)
+        audio = pl.generate(TEXT, speaker="aiden", max_tokens=frames, seed=0)
         gen_s = time.perf_counter() - t0
         frames = kept[-1]
         ok = bool(np.isfinite(audio).all()) and len(audio) == frames * spf
@@ -1328,7 +1350,7 @@ def run_pipeline(card: str, d: str, label: str, configuration, need: tuple[str, 
         t0 = time.perf_counter()
         first = None
         chunks = []
-        for ch in pl.generate_stream(TEXT, speaker="aiden", max_tokens=96, seed=0):
+        for ch in pl.generate_stream(TEXT, speaker="aiden", max_tokens=frames, seed=0):
             if first is None and len(ch.samples):
                 first = time.perf_counter() - t0
             chunks.append(ch)
@@ -2017,17 +2039,9 @@ def _greedy_scores(state: dict, statics):
     """The scores a greedy lockstep step takes its code 0 from (as
     serving.lockstep_step: the eos / pad mask while text remains, the
     repetition penalty on seen codes, the validity mask), [B, V] fp32."""
-    import torch
+    from qwen3_tts_tpu_torch.parallel.dryrun import greedy_scores
 
-    from qwen3_tts_tpu_torch.models import generate as gen_mod
-    from qwen3_tts_tpu_torch.ops.sampling import NEG_INF
-
-    eos_pad_mask, valid_mask = gen_mod.step_masks(statics.config, state["logits"].device)
-    has_text = state["trailing_idx"] < state["total_texts"]
-    lg = (state["logits"] + torch.where(has_text[:, None], eos_pad_mask, 0.0)).float()
-    lg = lg / torch.where(state["seen_code0"], statics.repetition_penalty, 1.0)
-    # masked codes (NEG_INF added) as -inf, so they set no near-tie's scale
-    return torch.where(valid_mask & (lg > float(NEG_INF) / 2), lg, float("-inf"))
+    return greedy_scores(state, statics.config, "total_texts", statics.repetition_penalty)
 
 
 def _near_tie(scores, a: int, w: int) -> bool:
@@ -3256,6 +3270,627 @@ def phase_train(card: str) -> tuple[dict, dict]:
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor-parallel inference on two ranks that share the card
+# ---------------------------------------------------------------------------
+
+TP_FRAMES = 48  # the single stream's greedy frames
+TP_CHUNK = 6  # the serving cycle's chunk: two chunks, park / admit, one more
+TP_SERVICE_TOKENS = 24
+TP_TIMED_FRAMES = 8
+
+
+def _sync() -> None:
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+# The tp = 2 talker against the unsharded one, teacher-forced, bf16: each
+# rank's o_proj and down_proj partial sums are bf16 products over half of K,
+# each rounded to bf16 before the fp32 all-reduce, where the unsharded
+# product rounds once (and the column-parallel products run other GEMM
+# shapes); an element that lands on the other side of a rounding boundary
+# moves by 2^-9 and the random-weight layers carry it on, as TOL_BATCH's
+# note says of B = 8 against B = 1. In fp32 the two agree to ~7e-7 (the
+# phase checks it). Derived from the first card run (1.755e-2 on the single
+# stream; over the first runs 1.578-1.755e-2 single, 1.608-1.802e-2
+# serving, NVIDIA H100 80GB HBM3, 700 W) and held at TOL_BATCH's value.
+TOL_TP = TOL["bfloat16"]
+# A free-running departure of a code-predictor code (codes 1-15, K2's
+# W8A8 scores) counts as a near tie within TOL_W8A8 of the top score: K2
+# rounds its activations to int8, so the talker's bf16 difference above
+# moves its logits as TOL_W8A8's note says (departures measured on the
+# card at 1.71e-2 and 3.36e-2 of the top score); code 0 keeps NEAR_TIE.
+NEAR_TIE_CP = TOL_W8A8["bfloat16"]
+
+
+def _tp_single(pl, plain: dict, sharded: dict, rank: int, out: dict) -> None:
+    """generate() on every rank with the sharded tree (the counted run);
+    the sharded raw frames against the unsharded ones, teacher-forced on
+    the unsharded frames: talker logits rel RMS a step, and a departure of
+    the free-running frames allowed at a near-tie of the unsharded run's
+    own scores only (code 0 from the talker's scores, codes 1-15 from K2's
+    logits of the unsharded state); then ms a frame of a decode chunk,
+    sharded and (rank 0 alone) unsharded, with the all-reduces a frame."""
+    import torch
+    import torch.distributed as dist
+
+    from qwen3_tts_tpu_torch.models import code_predictor as cp_mod
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import talker as talker_mod
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+    from qwen3_tts_tpu_torch.parallel.dryrun import greedy_scores
+
+    cfg, cc = pl.config, pl.config.code_predictor_config
+    spf = pl.speech_config.decoder_config.total_upsample
+    pl.params = sharded
+    codes = gen_mod.generate_codes
+    made: list = []
+
+    def keep(*args, **kwargs):  # generate()'s raw frames
+        made.append(codes(*args, **kwargs))
+        return made[-1]
+
+    gen_mod.generate_codes = keep
+    try:
+        reset_counts()
+        sh.Parallel.reduces = 0
+        _sync()
+        t0 = time.perf_counter()
+        audio = pl.generate(TEXT, "aiden", temperature=0.0, max_tokens=TP_FRAMES, seed=0)
+        _sync()
+        gen_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        gen_mod.generate_codes = codes
+    reduces = sh.Parallel.reduces
+    pd = pl._assemble(TEXT, "aiden")
+    (raw,) = made
+    kept = len(gen_mod.filter_valid_frames(raw))
+    ok = bool(np.isfinite(audio).all()) and len(audio) == kept * spf and kept > 0
+    out["single"] = {"generate_s": gen_s, "launches": launches, "reduces": reduces,
+                     "frames": len(raw), "kept": kept, "audio_ok": ok}
+    if rank == 0:
+        log(f"[tp] generate on the tp = 2 tree (every rank): {len(raw)} frames, {kept} valid, "
+            f"{len(audio)} samples, finite {bool(np.isfinite(audio).all())}, {gen_s:.2f} s; "
+            f"{reduces} all-reduces; kernel launches on rank 0: {launches}")
+    if not ok:
+        raise SystemExit(f"[tp] rank {rank}: generate() on the sharded tree is wrong")
+
+    # the unsharded frames from rank 0, padded to TP_FRAMES rows (-1) after
+    # a row holding their count, so every rank forces the same frames
+    buf = torch.full((TP_FRAMES + 1, cc.num_code_groups), -1, dtype=torch.int64)
+    if rank == 0:
+        plain_raw = gen_mod.generate_codes(plain, pl.cp_params, cfg, pd, temperature=0.0,
+                                           max_tokens=TP_FRAMES)
+        buf[0, 0] = len(plain_raw)
+        buf[1:1 + len(plain_raw)] = torch.from_numpy(plain_raw).long()
+    dist.broadcast(buf, 0)
+    plain_raw = buf[1:1 + int(buf[0, 0])]
+    raw_t = torch.from_numpy(raw).long()
+    n = min(len(raw_t), len(plain_raw))
+    diff = (raw_t[:n] != plain_raw[:n]).any(1).nonzero()
+    same = not len(diff) and len(raw_t) == len(plain_raw)
+    depart = int(diff[0]) if len(diff) else n  # n: one run stopped (EOS) before the other
+
+    def code(frames, i, k):  # the code a run took at step i (EOS once it stopped)
+        return int(frames[i, k]) if i < len(frames) else cfg.codec_eos_token_id
+
+    forced = plain_raw.to(pl.device)
+    kw = dict(temperature=0.0, generator=None, track_cp_penalty=True)
+    ss = gen_mod.prefill(sharded, pd, cfg)
+    sp = gen_mod.prefill(plain, pd, cfg) if rank == 0 else None
+    errs, tie = [], None
+    for i in range(len(forced) + 1):
+        if rank == 0:
+            errs.append(rel_rms(ss["logits"], sp["logits"]))
+            if i == depart and not same:  # the unsharded state's own scores there
+                # the first code that departs, in the frame's order (each
+                # code-predictor group reads the codes before it)
+                g = next(k for k in range(cc.num_code_groups)
+                         if code(plain_raw, i, k) != code(raw_t, i, k))
+                a, w = code(plain_raw, i, g), code(raw_t, i, g)
+                if g == 0:
+                    dep = _tie_gap(greedy_scores(sp, cfg, "total_text"), 0, a, w)
+                    dep["limit"] = NEAR_TIE
+                else:  # K2's logits of the unsharded state, its own codes before g
+                    f = forced[i]
+                    lg: list = []
+                    cp_mod.predict_frame(
+                        pl.cp_params, sp["h_last"], talker_mod.encode_audio(plain, f[:1][None]),
+                        None, 0.0, sp["seen_cp"].clone(), cc, forced_codes=f[1:], logits_out=lg)
+                    score = lg[g - 1].float() / torch.where(sp["seen_cp"][g - 1], 1.05, 1.0)
+                    dep = _tie_gap(score, g, a, w)
+                    dep["limit"] = NEAR_TIE_CP
+                tie = dep["gap"] <= dep["limit"]
+                out["single"]["departure_code"] = dep
+        if i == len(forced):
+            break
+        gen_mod.decode_step(sharded, pl.cp_params, ss, cfg, forced_frame=forced[i], **kw)
+        if rank == 0:
+            gen_mod.decode_step(plain, pl.cp_params, sp, cfg, forced_frame=forced[i], **kw)
+    if rank == 0:
+        out["single"].update(tf_worst=max(errs), tf_mean=float(np.mean(errs)),
+                             tf_prefill=errs[0], frames_equal=same,
+                             departure=None if same else depart, near_tie=tie)
+        log(f"[tp] single stream teacher-forced on the unsharded {len(forced)} frames: talker "
+            f"logits rel RMS max {max(errs):.3e} mean {float(np.mean(errs)):.3e}, after the "
+            f"prefill {errs[0]:.3e} (tol {TOL_TP:g}); free-running frames "
+            + ("equal" if same else f"depart at frame {depart}, first at "
+               f"{out['single'].get('departure_code')} (the two codes' gap in the unsharded "
+               f"scores over the top score, its limit), a near tie: {tie}"))
+        if not max(errs) <= TOL_TP or not (same or tie):
+            raise SystemExit("[tp] the sharded single stream disagrees with the unsharded one")
+
+    # ms a frame, sharded (both ranks) and unsharded (rank 0 alone)
+    def chunk_ms(tree):
+        """(ms a frame of a timed decode chunk, all-reduces a frame)"""
+        st = gen_mod.prefill(tree, pd, cfg)
+        gen_mod.decode_chunk(tree, pl.cp_params, st, cfg, steps=2, **kw)
+        _sync()
+        sh.Parallel.reduces = 0
+        t0 = time.perf_counter()
+        gen_mod.decode_chunk(tree, pl.cp_params, st, cfg, steps=TP_TIMED_FRAMES, **kw)
+        _sync()
+        return ((time.perf_counter() - t0) * 1e3 / TP_TIMED_FRAMES,
+                sh.Parallel.reduces / TP_TIMED_FRAMES)
+
+    out["single"]["ms_frame_tp"], out["single"]["reduces_frame"] = chunk_ms(sharded)
+    dist.barrier()
+    if rank == 0:
+        out["single"]["ms_frame_plain"] = chunk_ms(plain)[0]
+        log(f"[tp] single stream decode chunk: {out['single']['ms_frame_tp']:.2f} ms a frame at "
+            f"tp = 2 (two ranks on one card, gloo), {out['single']['reduces_frame']:.0f} "
+            f"all-reduces a frame; unsharded {out['single']['ms_frame_plain']:.2f} ms a frame "
+            f"(rank 0 alone) ({out['card']}, {out['dtype']})")
+    dist.barrier()
+
+
+def _tie_gap(scores, k: int, a: int, w: int) -> dict:
+    """Code k's departure: the unsharded pick a, the sharded w and their
+    score gap over the largest finite score (_near_tie's measure)."""
+    import torch
+
+    top = float(scores[torch.isfinite(scores)].abs().max())
+    gap = float((scores[a] - scores[w]).abs()) / top if bool(torch.isfinite(scores[w])) \
+        else float("inf")
+    return {"code": k, "unsharded": a, "sharded": w, "gap": gap}
+
+
+def _tp_fp32(pl, plain: dict, mesh, rank: int, out: dict) -> None:
+    """The same weights in fp32 (TF32 off): the prefill's logits of the
+    tp = 2 tree against the unsharded tree's, where only the sum order
+    differs, so the bf16 gap is rounding, not the split."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import prompt as prompt_mod
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+    from qwen3_tts_tpu_torch.parallel.train import _map
+
+    cfg = pl.config
+    t32 = _map(lambda x: x.float(), plain)
+    s32 = sh.shard_params(t32, mesh, config=cfg)
+    pd = prompt_mod.assemble_prompt(t32, cfg, pl.tokenizer, TEXT, speaker="aiden")
+    got = gen_mod.prefill(s32, pd, cfg)["logits"]
+    if rank == 0:
+        err = rel_rms(got, gen_mod.prefill(t32, pd, cfg)["logits"])
+        out["fp32_prefill_rel"] = err
+        log(f"[tp] the same weights in fp32: prefill logits at tp = 2 against unsharded rel "
+            f"RMS {err:.3e} (tol {TOL['float32']:g}: the sum order only)")
+        if not err <= TOL["float32"]:
+            raise SystemExit("[tp] the fp32 tp = 2 prefill disagrees with the unsharded one")
+    del t32, s32
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _tp_serving(pl, plain: dict, sharded: dict, rank: int, out: dict) -> None:
+    """The serving cycle at B = 8 (two chunks, park_slot(0), a B = 1 prefill
+    admitted into slot 0, one more chunk): free-running on the sharded tree
+    (decode_chunk_serving, eager), the unsharded eager step on rank 0, and
+    the sharded step teacher-forced on the unsharded frames: talker logits
+    rel RMS a step over the rows that emitted, code-0 departures only at a
+    near-tie of the unsharded scores. Then the eager B = 8 step's ms,
+    sharded and unsharded (rank 0 alone)."""
+    import torch
+    import torch.distributed as dist
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import serving as srv
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+    from qwen3_tts_tpu_torch.parallel.dryrun import greedy_scores
+
+    cfg = pl.config
+    statics = gen_mod.GenStatics(config=cfg, capacity=64 + gen_mod.RING_SLACK,
+                                 chunk_steps=TP_CHUNK, track_cp_penalty=False)
+    dev = pl.device
+    cp = srv._drop_kernel(pl.cp_params)
+    b = len(SERVE_TEXTS)
+    zeros = torch.zeros(b, device=dev)
+
+    tb = gen_mod.pick_bucket(max(pl._assemble(t, "aiden").trailing_hidden.shape[1]
+                                 for t in (*SERVE_TEXTS, LATE_TEXTS[0])),
+                             gen_mod.TRAILING_BUCKETS)
+
+    def state(tree, texts, seeds):
+        pds = [pl._assemble(t, "aiden") for t in texts]
+        e, tr, lengths, totals = srv._pad_prompts(pds, 64, tb)
+        return srv.prefill_batched(tree, e, lengths, tr, totals, pds[0].tts_pad_embed,
+                                   srv._device_ints(seeds, dev), statics)
+
+    def cycle(tree, step):
+        """The cycle's 3 chunks; step(st, i) runs step i; returns the state."""
+        st, i = state(tree, SERVE_TEXTS, range(b)), 0
+        for c in range(3):
+            if c == 2:
+                srv.park_slot(st, 0)
+                srv.admit_stream(st, 0, state(tree, LATE_TEXTS[:1], [99]), statics)
+            for _ in range(TP_CHUNK):
+                st = step(st, i) or st
+                i += 1
+        return st
+
+    t0 = time.perf_counter()
+    got = []
+
+    def free_chunked(st, i):
+        if i % TP_CHUNK == 0:
+            frames, _, _, st = srv.decode_chunk_serving(sharded, pl.cp_params, st, 0.0, statics)
+            got.append(frames.cpu())
+        return st
+
+    cycle(sharded, free_chunked)
+    _sync()
+    free_s = time.perf_counter() - t0
+    sh_frames = torch.cat(got, 1)  # [B, 18, 16]
+    steps = sh_frames.shape[1]
+    ref = torch.zeros_like(sh_frames)
+    logits_ref, scores_ref = [], []
+    if rank == 0:
+        def plain_step(st, i):
+            scores_ref.append(greedy_scores(st, cfg, "total_texts"))
+            srv.lockstep_step(plain, cp, st, zeros, statics, False)
+            ref[:, i] = st["frame"].cpu()
+            logits_ref.append(st["logits"].clone())
+
+        cycle(plain, plain_step)
+    dist.broadcast(ref, 0)
+    forced = ref.to(dev)
+    errs = []
+
+    def forced_step(st, i):
+        srv.lockstep_step(sharded, cp, st, zeros, statics, False,
+                          forced=forced[:, i].clamp_min(0))
+        if rank == 0:
+            rows = forced[:, i, 0] >= 0
+            if rows.any():
+                errs.append(rel_rms(st["logits"][rows], logits_ref[i][rows]))
+
+    cycle(sharded, forced_step)
+    if rank == 0:
+        ties, off, cp_off = 0, [], 0
+        for j in range(b):
+            d = (sh_frames[j] != ref[j]).any(1).nonzero()
+            if not len(d):
+                continue
+            i = int(d[0])
+            a, w = int(ref[j, i, 0]), int(sh_frames[j, i, 0])
+            if a == w:
+                cp_off += 1  # a code-predictor code departs (its scores: not kept)
+            elif a >= 0 and w >= 0 and _near_tie(scores_ref[i][j], a, w):
+                ties += 1
+            else:
+                off.append((j, i, w, a))
+        worst = max(errs)
+        out["serving"] = {"free_s": free_s, "steps": steps, "tf_worst": worst,
+                          "tf_mean": float(np.mean(errs)),
+                          "rows_equal": b - ties - cp_off - len(off),
+                          "code0_near_ties": ties, "cp_departures": cp_off}
+        log(f"[tp] serving cycle B = {b} ({steps} steps: 2 chunks of {TP_CHUNK}, park_slot, "
+            f"admit_stream, a chunk), eager, sharded free run {free_s:.2f} s; teacher-forced on "
+            f"the unsharded eager step's frames: talker logits rel RMS max {worst:.3e} mean "
+            f"{float(np.mean(errs)):.3e} (tol {TOL_TP:g}); rows equal to the unsharded run "
+            f"{out['serving']['rows_equal']} of {b}, code-0 departures at a near tie {ties}, "
+            f"code-predictor departures {cp_off}, others {off}")
+        if not worst <= TOL_TP or off:
+            raise SystemExit("[tp] the sharded serving cycle disagrees with the unsharded one")
+
+    def step_ms(tree, n=3):
+        """(ms of an eager step, all-reduces a step)"""
+        st = state(tree, SERVE_TEXTS, range(b))
+        srv.lockstep_step(tree, cp, st, zeros, statics, False)
+        _sync()
+        sh.Parallel.reduces = 0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            srv.lockstep_step(tree, cp, st, zeros, statics, False)
+        _sync()
+        return (time.perf_counter() - t0) * 1e3 / n, sh.Parallel.reduces / n
+
+    ms_tp, reduces = step_ms(sharded)
+    dist.barrier()
+    if rank == 0:
+        ms_plain = step_ms(plain)[0]
+        out["serving"].update(step_ms_tp=ms_tp, step_ms_plain=ms_plain, reduces_step=reduces)
+        log(f"[tp] eager lockstep step B = {b}: {ms_tp:.1f} ms at tp = 2 ({reduces:.0f} "
+            f"all-reduces a step), unsharded {ms_plain:.1f} ms (rank 0 alone) "
+            f"({out['card']}, {out['dtype']})")
+    dist.barrier()
+
+
+def _tp_vocode(pl, mesh, rank: int, out: dict) -> None:
+    """decode_frames of codes [8, 16, 110] placed on "dp" (4 rows a rank)
+    against the unsharded decode of all 8 rows (rank 0)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+
+    dec = pl.speech_config.decoder_config
+    codes = torch.from_numpy(np.random.default_rng(5).integers(
+        0, dec.codebook_size, (8, dec.num_quantizers, 110)))
+    placed = sh._place(codes.to(pl.device), mesh, ("dp", None, None))
+    before = read_counts()
+    _sync()
+    t0 = time.perf_counter()
+    wav = voc.decode_frames(pl.vocoder_params, placed, dec)
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v - before[k] for k, v in read_counts().items()}
+    full = sh.gather_rows(wav)
+    if rank == 0:
+        ref = voc.decode_frames(pl.vocoder_params, codes.to(pl.device), dec).cpu()
+        err, mad = rel_rms(full, ref), float((full - ref).abs().max())
+        out["vocode"] = {"rows_a_rank": wav.to_local().shape[0], "rel_rms": err,
+                         "max_abs": mad, "ms": ms, "launches": launches}
+        log(f"[tp] dp vocode on a (dp = 2, tp = 1) mesh: codes {tuple(codes.shape)}, "
+            f"{wav.to_local().shape[0]} rows a rank, {ms:.1f} ms on rank 0; gathered on the "
+            f"host against the unsharded decode of all 8 rows: rel RMS {err:.3e}, max abs "
+            f"{mad:.3e} (tol {TOL_VOCODER_BF16:g}); launches on rank 0: {launches}")
+        if not err <= TOL_VOCODER_BF16:
+            raise SystemExit("[tp] the dp-sharded vocode disagrees with the unsharded one")
+
+
+def _tp_service(pl, plain: dict, sharded: dict, rank: int, out: dict) -> None:
+    """TTSService on the tp = 2 tree (rank 0 serves, rank 1 follows): a
+    burst of 3 requests, then one arrival into the running batch, B = 8,
+    TP_SERVICE_TOKENS frames each, greedy; then rank 0 alone runs the same
+    traffic through an unsharded service. Per request: token ranges and
+    audio length (equal where every frame agrees), and the audio's rel RMS
+    over the leading frames that agree (TOL_VOCODER_BF16: the vocoder's
+    rows batched otherwise)."""
+    import torch.distributed as dist
+
+    from qwen3_tts_tpu_torch.models import serving as srv
+    from qwen3_tts_tpu_torch.service import TTSService
+
+    kw = dict(batch_size=8, chunk_steps=6)
+    if rank != 0:
+        pl.params = sharded
+        TTSService.follow(pl, **kw)
+        dist.barrier()
+        return
+
+    def serve(tree):
+        pl.params = tree
+        frames: dict = {}
+        feed = srv._RowPacker.feed
+
+        def keep(self, key, valid, done):  # each request's frames as routed
+            frames.setdefault(id(key), []).append(np.asarray(valid))
+            return feed(self, key, valid, done)
+
+        srv._RowPacker.feed = keep
+        svc = TTSService(pl, **kw)
+        try:
+            t0 = time.perf_counter()
+            opts = dict(temperature=0.0, max_tokens=TP_SERVICE_TOKENS)
+            burst: list = []
+            for i, text in enumerate(SERVICE_TEXTS[:3]):
+                svc.submit(text, "aiden", seed=i, _hold=burst, **opts)
+            svc._enqueue(burst)
+            streams = [r.chunks() for r in burst]
+            heads = [[next(streams[0])]] + [[] for _ in burst[1:]]
+            late = svc.submit(LATE_TEXTS[0], "aiden", seed=3, **opts)
+            reqs = burst + [late]
+            res = []
+            for r, h, s in zip(reqs, heads + [[]], streams + [late.chunks()]):
+                chunks = h + list(s)
+                parts = [c.samples for c in chunks if len(c.samples)]
+                res.append((np.concatenate(parts) if parts else np.zeros(0, np.float32),
+                            [c.token_range for c in chunks],
+                            np.concatenate(frames.get(id(r), [np.zeros((0, 16))]))))
+            wall = time.perf_counter() - t0
+            stats = svc.stats()
+        finally:
+            svc.close()
+            srv._RowPacker.feed = feed
+        return res, wall, stats
+
+    got, wall, stats = serve(sharded)
+    ref, ref_wall, _ = serve(plain)
+    pl.params = plain
+    spf = pl.speech_config.decoder_config.total_upsample
+    rows = []
+    for i, ((a, r, f), (ja, jr, jf)) in enumerate(zip(got, ref)):
+        n = min(len(f), len(jf))
+        agree = int(np.argmin(np.r_[(f[:n] == jf[:n]).all(1), False]))  # leading frames equal
+        same = agree == len(f) == len(jf)
+        m = min(agree * spf, len(a), len(ja))  # their samples (the vocoder is causal)
+        rows.append({"ranges_equal": r == jr, "len": len(a), "len_ref": len(ja),
+                     "frames_equal": same, "frames_agree": agree,
+                     "audio_rel_rms": rel_rms_np(a[:m], ja[:m]) if m else None})
+    out["service"] = {"requests": rows, "wall_s": wall, "wall_s_plain": ref_wall,
+                      "completed": stats["requests_completed"]}
+    log(f"[tp] TTSService at tp = 2 (rank 0 serves, rank 1 follows), B = 8: a burst of 3 then "
+        f"one arrival into the running batch, {TP_SERVICE_TOKENS} frames each, greedy: "
+        f"{wall:.2f} s (unsharded service {ref_wall:.2f} s); per request against the unsharded "
+        f"service: {rows}")
+    bad = [x for x in rows if x["len"] == 0
+           or (x["frames_equal"] and not (x["ranges_equal"] and x["len"] == x["len_ref"]))
+           or (x["audio_rel_rms"] is not None and not x["audio_rel_rms"] <= TOL_VOCODER_BF16)]
+    if bad or stats["requests_completed"] != 4:
+        raise SystemExit(f"[tp] the sharded service disagrees with the unsharded one: {bad}")
+    dist.barrier()
+
+
+def rel_rms_np(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.sqrt(np.mean((a - b) ** 2) / max(np.mean(b ** 2), 1e-30)))
+
+
+def _tp_nccl_one(pl, plain: dict, root: str, out: dict) -> None:
+    """A one-process NCCL (dp = 1, tp = 1) mesh through the sharded code: a
+    prefill and 8 frames equal to the unsharded (unfused) tree's, the
+    logits within TOL_TP."""
+    import torch
+    import torch.distributed as dist
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+
+    cfg = pl.config
+    pd = pl._assemble(TEXT, "aiden")
+    kw = dict(temperature=0.0, generator=None, track_cp_penalty=True)
+    sh.init_process_group(pl.device, 0, 1, f"file://{root}/nccl_rendezvous", timeout_s=120)
+    try:
+        mesh = sh.make_mesh(1, tp=1)
+        placed = sh.shard_params(plain, mesh, config=cfg)
+        backend = dist.get_backend()
+        res = []
+        for tree in (placed, sh.unfuse_qkv_gateup(plain, cfg)):
+            st = gen_mod.prefill(tree, pd, cfg)
+            logits0 = st["logits"].clone()
+            frames, count, _ = gen_mod.decode_chunk(tree, pl.cp_params, st, cfg, steps=8, **kw)
+            res.append((logits0, frames, int(count), st["logits"]))
+    finally:
+        dist.destroy_process_group()
+    (l0, f0, c0, e0), (l1, f1, c1, e1) = res
+    same = torch.equal(f0, f1) and c0 == c1
+    bitwise = torch.equal(l0, l1) and torch.equal(e0, e1)
+    out["nccl_tp1"] = {"backend": backend, "frames_equal": same, "bitwise": bitwise,
+                       "logits_rel": max(rel_rms(l0, l1), rel_rms(e0, e1))}
+    err = max(rel_rms(l0, l1), rel_rms(e0, e1))
+    log(f"[tp] one-process {backend} mesh (dp = 1, tp = 1), the sharded code: prefill + 8 "
+        f"frames {'equal' if same else 'DIFFER'} to the unsharded tree's, logits "
+        + ("bit for bit" if bitwise else f"rel RMS {err:.3e} (tol {TOL_TP:g}: the "
+           "row-parallel products in fp32, rounded once, against bf16 GEMMs)"))
+    if not same or not err <= TOL_TP:
+        raise SystemExit("[tp] the one-process NCCL mesh differs from the unsharded run")
+
+
+def _tp_worker(rank: int, world: int, d: str, root: str, card: str, backend: str,
+               device: str = "cuda") -> None:
+    """One rank of phase_tp: the dense bf16 pipeline from `d`, its talker
+    placed on a (dp = 1, tp = world) mesh over `backend`; with gloo (two
+    ranks on one card) every step, with nccl (a card a rank) the single
+    stream only. Rank 0 writes its results to root/tp.json, every rank its
+    launches to root/launches<rank>.json. device="cpu" rehearses the steps
+    at a tiny width on the CPU in fp32 (the one-process mesh then over
+    gloo)."""
+    import json as _json
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.parallel import sharding as sh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)  # two ranks and the parent share the host's cores
+    sh.init_process_group(device, rank, world, f"file://{root}/rendezvous", timeout_s=300,
+                          backend=backend)
+    out = {"card": card, "dtype": "bfloat16" if device == "cuda" else "float32"}
+    try:
+        t0 = time.perf_counter()
+        dense = qt.Qwen3TTSPipelineConfiguration(apply_runtime_quantization=False,
+                                                 use_talker_megakernel=False)
+        pl = qt.Qwen3TTSPipeline(d, dense, device=device, dtype=getattr(torch, out["dtype"]))
+        plain, cfg = pl.params, pl.config
+        mesh = sh.make_mesh(world, tp=world)
+        sharded = sh.shard_params(plain, mesh, config=cfg)
+        lay = sh.local_params(sharded)[1]["layers"]
+        heads = (lay["qkv_proj"]["q"]["w"].shape[1] // cfg.head_dim,
+                 lay["qkv_proj"]["k"]["w"].shape[1] // cfg.head_dim,
+                 lay["gateup_proj"]["gate"]["w"].shape[1])
+        out.update(load_s=time.perf_counter() - t0, backend=dist.get_backend(),
+                   local_heads=heads, kernel_in_cp="kernel" in pl.cp_params,
+                   kernel_in_talker="kernel" in plain)
+        if rank == 0:
+            log(f"[tp] {world} ranks on {torch.cuda.device_count()} card(s), backend "
+                f"{dist.get_backend()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}; "
+                f"dense {out['dtype']} model loaded in {out['load_s']:.1f} s; rank 0 holds "
+                f"{heads[0]} q / {heads[1]} kv heads and {heads[2]} MLP columns; K2's tree "
+                f"{'present' if out['kernel_in_cp'] else 'ABSENT'}, K1's "
+                f"{'present' if out['kernel_in_talker'] else 'absent'}")
+        _tp_fp32(pl, plain, mesh, rank, out)
+        _tp_single(pl, plain, sharded, rank, out)
+        if backend == "gloo":
+            _tp_serving(pl, plain, sharded, rank, out)
+            _tp_vocode(pl, sh.make_mesh(world, tp=1), rank, out)
+            _tp_service(pl, plain, sharded, rank, out)
+        with open(os.path.join(root, f"launches{rank}.json"), "w") as f:
+            _json.dump(out["single"]["launches"], f)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0 and backend == "gloo":
+        _tp_nccl_one(pl, plain, root, out)
+    if rank == 0:
+        with open(os.path.join(root, "tp.json"), "w") as f:
+            _json.dump(out, f)
+
+
+def phase_tp(card: str, d: str) -> tuple[dict, dict]:
+    """Tensor-parallel inference at 0.6B, full width and depth, on the
+    model dir `d` (random weights from seed 0) in the dense bf16
+    configuration (no runtime quantization, K1 off; K2 on for the single
+    stream, K4-K6 in the vocoder): two spawned ranks share the card over
+    gloo at tp = 2 (_tp_worker): generate() on every rank, teacher-forced
+    against the unsharded run; the serving cycle at B = 8, eager; a dp
+    vocode of [8, 16, 110]; TTSService with rank 0 serving and rank 1
+    following; ms a frame and a step, sharded and unsharded; then a
+    one-process NCCL tp = 1 mesh against the unsharded run. NCCL tp = 2 across cards when the
+    machine has two or more. Returns (rank 0's launch counts over the
+    sharded generate(), metrics)."""
+    import json as _json
+    import os
+
+    import torch
+
+    from qwen3_tts_tpu_torch.parallel.dryrun import spawn_group
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        spawn_group(_tp_worker, (2, d, root, card, "gloo"), 2, 900.0, "[tp] gloo tp = 2")
+        with open(os.path.join(root, "tp.json")) as f:
+            metrics = _json.load(f)
+        launches = [_json.load(open(os.path.join(root, f"launches{r}.json"))) for r in (0, 1)]
+    for r, got in enumerate(launches):
+        check_counts(f"tp rank {r}", got, need=("cp_frame", "pre_transformer", "upsample_stage",
+                                                "residual_units", "block_upsample"),
+                     idle=("talker_step", "int8_matmul", "packed_matmul", "gumbel_sample",
+                           "pre_transformer_fused"))
+        if got["cp_frame"] != TP_FRAMES:  # generate() decodes one chunk of TP_FRAMES steps
+            raise SystemExit(f"[tp] rank {r}: K2 launched {got['cp_frame']} times for "
+                             f"{TP_FRAMES} steps")
+    log(f"[tp] K2 once a frame on each rank ({launches[0]['cp_frame']} and "
+        f"{launches[1]['cp_frame']} for a chunk of {TP_FRAMES} steps)")
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as root:
+            spawn_group(_tp_worker, (2, d, root, card, "nccl"), 2, 600.0, "[tp] nccl tp = 2")
+            with open(os.path.join(root, "tp.json")) as f:
+                metrics["nccl_tp2"] = _json.load(f)["single"]
+    else:
+        log("[tp] NCCL tp = 2 across cards: not run, the machine has one card")
+        metrics["nccl_tp2"] = "not run: one card"
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase: {metrics['phase_s']:.1f} s")
+    return launches[0], metrics
+
+
 def main() -> int:
     import torch
 
@@ -3291,7 +3926,8 @@ def main() -> int:
     vocoder = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
     megakernels = ("talker_step", "cp_frame")
     sampler = ("gumbel_sample",)  # its kernel: K2 draws inside its own launch
-    with tempfile.TemporaryDirectory() as d:
+    main_dir = tempfile.TemporaryDirectory()  # the 0.6B dir, kept for the tp phase
+    with contextlib.nullcontext(main_dir.name) as d:
         t0 = time.perf_counter()
         talker_dense, cp_dense, _ = write_model_dir(
             d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(), seed=0)
@@ -3319,9 +3955,12 @@ def main() -> int:
 
         off = qt.Qwen3TTSPipelineConfiguration(use_talker_megakernel=False,
                                                use_cp_megakernel=False)
+        # the host-bound configurations (RTF 2.5-3.7) decode 24 frames, not
+        # 96, so the script keeps its margin under its time limit with the
+        # tp phase (77-147 s) added
         pl, launches["k3_path"], results["k3"] = run_pipeline(
             card, d, "k3-pipeline", off, need=("int8_matmul",) + vocoder,
-            idle=megakernels + sampler + ("packed_matmul",))
+            idle=megakernels + sampler + ("packed_matmul",), frames=24)
         no_sync_chunk(pl, "k3-pipeline")
         profile_frames(pl, "k3-pipeline", card, steps=4)
         launches["serving_k3"] = serving_k3(pl, card)
@@ -3333,7 +3972,7 @@ def main() -> int:
                                                  use_cp_megakernel=False)
         pl, launches["mixed"], results["mixed"] = run_pipeline(
             card, d, "mixed-pipeline", mixed, need=("packed_matmul",) + vocoder,
-            idle=megakernels + sampler + ("int8_matmul",))
+            idle=megakernels + sampler + ("int8_matmul",), frames=24)
         no_sync_chunk(pl, "mixed-pipeline")
         profile_frames(pl, "mixed-pipeline", card, steps=4)
         mixed_prefill_check(pl, card, "bfloat16")
@@ -3370,6 +4009,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         launches["modes"], results["modes"] = phase_modes(card, d)
     launches["verify"], results["verify"] = phase_verify(card)
+    launches["tp"], results["tp"] = phase_tp(card, main_dir.name)
+    main_dir.cleanup()
     launches["train"], results["train"] = phase_train(card)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
@@ -3399,6 +4040,7 @@ def main() -> int:
         row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
         row["launches_service"] = launches["service"][name]
         row["launches_train"] = launches["train"][name]  # the training path launches none
+        row["launches_tp"] = launches["tp"][name]  # rank 0's, on the tp = 2 generate()
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,13 @@ reference's trim schedule reproduced exactly). With a megakernel tree under
 params["kernel"], prefill hands the cache over in K1's layout and each
 talker step is one call of K1 (ops/cuda/talker_megakernel.py).
 
+A talker tree placed on a tp mesh (parallel.sharding.shard_params) runs
+the same loop on every rank: each keeps the cache of its local KV heads
+and sums the row-parallel products over tp inside the talker step, so
+every rank holds the same logits and hidden state, and the replicated code
+predictor (K2 when cp_params carries "kernel") draws the same codes on
+each from the same seed.
+
 stack_states / decode_chunk_batched decode B single-stream states side by
 side through the same decode_step, one batched step a frame with every
 linear at M = B (the batched serving path, models/serving.py, supersedes
@@ -79,7 +86,8 @@ def prefill(params: dict, prompt_data, config: Qwen3TTSConfig,
         capacity = p + RING_SLACK
     elif capacity < p + RING_SLACK:
         raise ValueError(f"capacity {capacity} < prompt {p} + RING_SLACK {RING_SLACK}")
-    cache = talker_mod.init_kv_cache(config, capacity, 1, embeds.dtype, dev)
+    cache = talker_mod.init_kv_cache(config, capacity, 1, embeds.dtype, dev,
+                                     talker_mod.kv_heads(params, config))
     h_last, cache = talker_mod.talker_prefill(params, embeds, cache, config)
     if "kernel" in params:
         cache = tmk.cache_to_kernel_layout(cache)

@@ -18,10 +18,13 @@ buffers in place. A failed capture raises. `bind` leases a graph to one
 state at a time under one lock, so callers on several threads (a service
 worker and a request thread) never share buffers, and captures outside it,
 one capture at a time; `capture` captures a key ahead of traffic. The CPU
-runs the same step eagerly. The megakernels are B = 1 launches, so the
-batched path drops params["kernel"] (as the JAX package does) and runs the
-layer-by-layer linears at M = B: K3 on int8 entries, K7 on packed ones,
-the `w8r` product on the megakernels' shared rowwise weights.
+runs the same step eagerly, and so does a talker tree placed on a tp mesh
+(parallel.sharding.shard_params): each rank steps its local heads and KV
+cache and all-reduces inside the step, which a graph does not capture. The
+megakernels are B = 1 launches, so the batched path drops params["kernel"]
+(as the JAX package does) and runs the layer-by-layer linears at M = B: K3
+on int8 entries, K7 on packed ones, the `w8r` product on the megakernels'
+shared rowwise weights.
 
 Draws: a stream's Gumbel noise is K2g's Philox formula keyed by the
 request's seed, with counter (v // 4, group, the stream's own step)
@@ -46,11 +49,9 @@ import numpy as np
 import torch
 
 from ..config import Qwen3TTSConfig
-from ..ops.attention import gqa_attention_full
 from ..ops.cuda import gumbel_sampler, packed_matmul, quant_matmul
-from ..ops.linear import linear
-from ..ops.norms import rms_norm
-from ..ops.sampling import NEG_INF, sample_token
+from ..ops.sampling import sample_token
+from ..parallel.sharding import is_placed
 from ..utils.postprocess import sanitize_samples
 from . import code_predictor as cp_mod
 from . import generate as gen_mod
@@ -122,36 +123,16 @@ def prefill_batched(params: dict, embeds_padded: torch.Tensor, lengths: torch.Te
     the serving state. embeds_padded [B, P, H]; lengths [B]; trailing_padded
     [B, T, H]; total_texts [B]; seeds [B] the requests' sampler seeds.
     Slots [0, P) are shared; a stream's padding slots carry pos = -1. The
-    cache is handed over in the plain k / v layout."""
+    cache is handed over in the plain k / v layout, with the rank's local
+    KV heads for a tree placed on a tp mesh."""
     params = _drop_kernel(params)
     cfg = statics.config
     b, p_pad, _ = embeds_padded.shape
     dev, dtype = embeds_padded.device, embeds_padded.dtype
-    nq, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
-    scale = 1.0 / float(hd) ** 0.5
-    idx = torch.arange(p_pad, device=dev)
-    cos, sin = talker_mod.rope_cos_sin(cfg, idx[None].expand(b, p_pad))
-    ok = (idx[None, :] <= idx[:, None])[None] & (idx[None, None, :] < lengths[:, None, None])
-    mask = torch.where(ok, 0.0, float(NEG_INF))[:, None, None]  # [B, 1, 1, P, P]
-    shape = (cfg.num_hidden_layers, b, nkv, statics.capacity, hd)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev),
-             "pos": torch.full((b, statics.capacity), -1, dtype=torch.int64, device=dev)}
-    h = embeds_padded
-    for i in range(cfg.num_hidden_layers):
-        lp = talker_mod._layer(params["layers"], i)
-        x = rms_norm(h, lp["input_layernorm"]["w"], eps)
-        q, k, v = talker_mod.layer_qkv(lp, x, cos, sin, nq, nkv, hd, eps)
-        cache["k"][i, :, :, :p_pad] = k
-        cache["v"][i, :, :, :p_pad] = v
-        attn = gqa_attention_full(q, k, v, scale, mask)
-        h = h + linear(lp["o_proj"], attn.transpose(1, 2).reshape(b, p_pad, -1))
-        x2 = rms_norm(h, lp["post_attention_layernorm"]["w"], eps)
-        h = h + linear(lp["down_proj"], talker_mod.swiglu(lp, x2, cfg.intermediate_size))
-    h = rms_norm(h, params["norm"]["w"], eps)
-    cache["pos"][:, :p_pad] = torch.where(idx[None] < lengths[:, None], idx[None], -1)
-    h_last = h.gather(1, (lengths - 1)[:, None, None].expand(b, 1, h.shape[2]))
+    cache = talker_mod.init_kv_cache(cfg, statics.capacity, b, dtype, dev,
+                                     talker_mod.kv_heads(params, cfg))
+    cache["pos"] = torch.full((b, statics.capacity), -1, dtype=torch.int64, device=dev)
+    h_last, cache = talker_mod.talker_prefill(params, embeds_padded, cache, cfg, lengths)
 
     def zeros(dt=torch.int64):
         return torch.zeros(b, dtype=dt, device=dev)
@@ -376,11 +357,18 @@ def _lease(pool: list):
     return g
 
 
+def _refuse_placed(params: dict) -> None:
+    if is_placed(params):
+        raise ValueError("a tree placed on a mesh runs the eager lockstep step; "
+                         "its collectives are not captured in a CUDA graph")
+
+
 def capture(params: dict, cp_params: dict, template: dict, statics, sampled: bool):
     """Capture a graph of `template`'s key unless the pool already holds
     one, ahead of traffic (a service's warmup captures every key it can
     reach, so its traffic never captures). Returns the pool's first graph
-    of the key. CUDA only."""
+    of the key. CUDA only; a tree placed on a mesh raises, as in bind."""
+    _refuse_placed(params)
     params, cp_params = _drop_kernel(params), _drop_kernel(cp_params)
     key = graph_key(cp_params, template, statics, sampled)
     with _CAPTURE_LOCK:
@@ -401,7 +389,10 @@ def bind(params: dict, cp_params: dict, state: dict, statics, sampled: bool) -> 
     that state is dropped. Use the returned state from here on. On the CPU
     `state` comes back unchanged. The copy is queued on the caller's
     current stream, behind the work that made `state`; a state's replays
-    and in-place edits must stay on that stream."""
+    and in-place edits must stay on that stream. A tree placed on a mesh
+    raises: its step's collectives are not captured (decode_chunk_serving
+    runs it eagerly)."""
+    _refuse_placed(params)
     if not state["logits"].is_cuda:
         return state if isinstance(state, ServingState) else ServingState(state)
     params, cp_params = _drop_kernel(params), _drop_kernel(cp_params)
@@ -431,21 +422,27 @@ def decode_chunk_serving(params: dict, cp_params: dict, state: dict, temperature
                          statics: gen_mod.GenStatics):
     """statics.chunk_steps lockstep steps for B streams, queued with no host
     sync. `temperature`: a shared float or one per stream. On CUDA each step
-    replays the state's bound graph (bind); on the CPU it runs eagerly.
-    Returns (frames [B, chunk, 16] int64 (-1 where a stream emitted
-    nothing), counts [B], eos [B], state) as device tensors; use the
-    returned state from here on."""
+    replays the state's bound graph (bind); on the CPU, and for a talker
+    tree placed on a mesh (its collectives are not captured), it runs
+    eagerly. Returns (frames [B, chunk, 16] int64 (-1 where a stream
+    emitted nothing), counts [B], eos [B], state) as device tensors; use
+    the returned state from here on."""
     b = state["logits"].shape[0]
+    dev = state["logits"].device
     temps = _host_temps(temperature, b)
     sampled = bool((temps > 0).any())
-    state = bind(params, cp_params, state, statics, sampled)
+    if is_placed(params):
+        state = state if isinstance(state, ServingState) else ServingState(state)
+    else:
+        state = bind(params, cp_params, state, statics, sampled)
     out = torch.empty(b, statics.chunk_steps, state["frame"].shape[1], dtype=torch.int64,
-                      device=state["frame"].device)
+                      device=dev)
     if state.graph is not None:
         state.graph.set_temps(temps)
         step = state.graph.replay
     else:
-        p, cp, t = _drop_kernel(params), _drop_kernel(cp_params), torch.from_numpy(temps)
+        p, cp = _drop_kernel(params), _drop_kernel(cp_params)
+        t = torch.from_numpy(temps).to(dev)
 
         def step():
             lockstep_step(p, cp, state, t, statics, sampled)

@@ -37,6 +37,7 @@ from ..ops.cuda.upsample_kernel import build_upsample_stage_params, upsample_sta
 from ..ops.cuda.vocoder_kernels import build_seanet_block_params, seanet_block_fused
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
+from ..parallel.sharding import DTensor, Shard
 
 DILATIONS = (1, 3, 9)
 
@@ -122,7 +123,17 @@ def build_vocoder_kernel_params(params: dict, cfg: TokenizerDecoderConfig,
 
 
 def decode_frames(params: dict, codes: torch.Tensor, cfg: TokenizerDecoderConfig) -> torch.Tensor:
-    """codes [B, nq, T] int64 -> waveform [B, T * total_upsample] float32."""
+    """codes [B, nq, T] int64 -> waveform [B, T * total_upsample] float32.
+    Codes placed on a mesh with their rows on "dp" (a DTensor sharded on
+    axis 0; the vocoder params replicated, plain tensors) are decoded on
+    each rank over its own rows, with the kernels when params carry them,
+    and the waveform comes back placed the same way (sharding.gather_rows
+    gathers it on the host)."""
+    if isinstance(codes, DTensor):
+        if any(isinstance(p, Shard) and p.dim != 0 for p in codes.placements):
+            raise ValueError("dp-placed codes are sharded on their batch axis only")
+        wav = decode_frames(params, codes.to_local(), cfg)
+        return DTensor.from_local(wav, codes.device_mesh, codes.placements, run_check=False)
     kernel = params.get("kernel")
     h = rvq_decode(params["quantizer"], codes)
     h = causal_conv1d(params["pre_conv"], h)

@@ -1,5 +1,5 @@
-"""Device mesh and sharding layout for training the talker (counterpart
-of qwen3_tts_tpu/parallel/sharding.py).
+"""Device mesh and sharding layout for the talker, in training and in
+inference (counterpart of qwen3_tts_tpu/parallel/sharding.py).
 
 A (dp, tp) `DeviceMesh` over torch.distributed, or (dp, sp, tp) with
 sequence parallelism. Megatron-style tensor parallelism over attention
@@ -19,13 +19,23 @@ step computes on the local shards with collectives written out
 column-parallel product, g (all-reduce forward, identity backward) after
 each row-parallel one, K / V all-gathered over sp (the backward sums over
 sp and keeps the rank's rows), and gradients summed over the axes the
-batch is sharded on. The backend is nccl for CUDA tensors and gloo for
-CPU ones; CUDA asked for and absent raises.
+batch is sharded on. Inference reads the same placement
+(`local_params`): each talker function computes on the rank's local
+shards with the local head counts and sums the row-parallel products over
+tp (`Parallel.reduce`), with no autograd: each rank's partial sums are
+summed in fp32 and cast back to the activations' dtype, so the sum's order
+adds no bf16 rounding of its own over the 2 x layers reductions a step.
+
+The backend is nccl for CUDA tensors and gloo for CPU ones by default;
+gloo also carries CUDA tensors (all_reduce and broadcast, not all_gather),
+so two ranks can share one card, which nccl refuses. CUDA asked for and
+absent raises.
 """
 
 from __future__ import annotations
 
 import datetime
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -38,7 +48,10 @@ from ..utils.device import resolve_device
 __all__ = [
     "DTensor",
     "Parallel",
+    "gather_rows",
     "init_process_group",
+    "is_placed",
+    "local_params",
     "local_tensor",
     "make_mesh",
     "shard_batch",
@@ -49,25 +62,39 @@ __all__ = [
 ]
 
 
+# the device type of the tensors the default group carries, set by
+# init_process_group (make_mesh builds its meshes on it)
+_GROUP_DEVICE: list = [None]
+
+
 def init_process_group(device="cuda", rank: int = 0, world_size: int = 1,
-                       init_method: str | None = None, timeout_s: float = 60.0) -> None:
-    """Join the default process group: nccl for a CUDA device (RuntimeError
-    without CUDA), gloo for the CPU. Collectives time out after
-    `timeout_s`."""
+                       init_method: str | None = None, timeout_s: float = 60.0,
+                       backend: str | None = None) -> None:
+    """Join the default process group for tensors on `device`: the backend
+    is nccl for a CUDA device (RuntimeError without CUDA) and gloo for the
+    CPU unless `backend` names one; backend="gloo" with a CUDA device puts
+    several ranks on one card. A CUDA rank uses card rank % device count.
+    Collectives time out after `timeout_s`."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            init_method=init_method, rank=rank, world_size=world_size,
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("nccl carries CUDA tensors only")
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s))
+    _GROUP_DEVICE[0] = dev.type
 
 
 def make_mesh(n_devices: int | None = None, tp: int | None = None, sp: int = 1) -> DeviceMesh:
     """A (dp, tp) mesh over the process group's ranks, or (dp, sp, tp) when
     sp > 1. tp defaults to the largest power of two <= min(n_devices, 8)
     that divides n_devices. The mesh spans the whole group: n_devices, if
-    given, must be its world size. Its device type follows the group's
-    backend (nccl: cuda, gloo: cpu)."""
+    given, must be its world size. Its device type is that of the tensors
+    the group was joined for (init_process_group's device; else nccl: cuda,
+    gloo: cpu)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "sharding.init_process_group first")
@@ -82,7 +109,7 @@ def make_mesh(n_devices: int | None = None, tp: int | None = None, sp: int = 1) 
     if n % (tp * sp) != 0:
         raise ValueError(f"n_devices {n} not divisible by tp*sp {tp * sp}")
     dp = n // (tp * sp)
-    device_type = "cuda" if "nccl" in dist.get_backend() else "cpu"
+    device_type = _GROUP_DEVICE[0] or ("cuda" if "nccl" in dist.get_backend() else "cpu")
     if sp == 1:
         return init_device_mesh(device_type, (dp, tp), mesh_dim_names=("dp", "tp"))
     return init_device_mesh(device_type, (dp, sp, tp), mesh_dim_names=("dp", "sp", "tp"))
@@ -91,7 +118,9 @@ def make_mesh(n_devices: int | None = None, tp: int | None = None, sp: int = 1) 
 def _place(x: torch.Tensor, mesh: DeviceMesh, spec: tuple) -> DTensor:
     """A copy of the full tensor `x` as a DTensor on `mesh`: `spec` names,
     per tensor axis, the mesh axis it is split over (or None), as a JAX
-    PartitionSpec does; this rank keeps its even chunk. No collective."""
+    PartitionSpec does; this rank keeps its even chunk, on x's device when
+    that is of the mesh's device type (else on the mesh's current device).
+    No collective."""
     placements, local = [], x
     for i, name in enumerate(mesh.mesh_dim_names):
         if name not in spec:
@@ -103,8 +132,12 @@ def _place(x: torch.Tensor, mesh: DeviceMesh, spec: tuple) -> DTensor:
                              f"{name} = {n}")
         local = local.chunk(n, dim=axis)[mesh.get_local_rank(name)]
         placements.append(Shard(axis))
-    dev = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" \
-        else torch.device(mesh.device_type)
+    if x.device.type == mesh.device_type:
+        dev = x.device
+    elif mesh.device_type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(mesh.device_type)
     local = local.to(device=dev, copy=True, memory_format=torch.contiguous_format)
     return DTensor.from_local(local, mesh, placements, run_check=False)
 
@@ -152,9 +185,13 @@ def talker_param_pspecs(config: Qwen3TTSConfig) -> dict:
 def unfuse_qkv_gateup(params: dict, config: Qwen3TTSConfig) -> dict:
     """Split the fused qkv / gateup stacked weights into per-section
     entries (the tensor-parallel layout layer_qkv / swiglu accept). Dense
-    entries only. Returns a new tree sharing every other leaf (the
-    sections are views)."""
+    entries only: a quantized or megakernel tree raises ValueError.
+    Returns a new tree sharing every other leaf (the sections are
+    views)."""
     lay = params["layers"]
+    if "kernel" in params:
+        raise ValueError("unfuse_qkv_gateup expects a dense tree; a megakernel tree "
+                         "(params['kernel']) runs on one device")
     if "q" in lay["qkv_proj"]:
         return params
     if "w" not in lay["qkv_proj"] or "w" not in lay["gateup_proj"]:
@@ -203,6 +240,82 @@ def validate_tp_divisibility(config: Qwen3TTSConfig, tp: int) -> None:
 def local_tensor(x):
     """The rank's shard of a DTensor (the same storage), else x."""
     return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def is_placed(tree: dict) -> bool:
+    """True for a tree placed on a mesh (shard_params places every leaf)."""
+    return isinstance(_first_leaf(tree), DTensor)
+
+
+# id(first leaf) -> (weak reference to it, the tree's keys, Parallel, local
+# tree); an entry goes when its leaf does
+_LOCAL: dict = {}
+
+
+def local_params(tree: dict) -> tuple["Parallel", dict]:
+    """(the collectives of an inference call on `tree`, the tree of this
+    rank's local tensors). An unplaced tree comes back as it is with the
+    one-process Parallel. A placed one (shard_params) gives the tp group
+    when a leaf is sharded on "tp" and its leaves' local shards (the same
+    storage), cached per tree: the talker functions call this on every
+    call. A tree that mixes placed and plain leaves raises."""
+    first = _first_leaf(tree)
+    if not isinstance(first, DTensor):
+        return SINGLE, tree
+    keys = tuple(tree)
+    entry = _LOCAL.get(id(first))
+    if entry is not None and entry[0]() is first and entry[1] == keys:
+        return entry[2], entry[3]
+    leaves = []
+
+    def local(node):
+        if isinstance(node, dict):
+            return {k: local(v) for k, v in node.items()}
+        if not isinstance(node, DTensor):
+            raise ValueError("a placed tree must have every leaf placed (shard_params)")
+        leaves.append(node)
+        return node.to_local()
+
+    with torch.no_grad():  # no autograd edge back to the DTensors
+        out = local(tree)
+    par = Parallel.of_params(leaves)
+    _LOCAL[id(first)] = (weakref.ref(first, lambda _r, k=id(first): _LOCAL.pop(k, None)),
+                         keys, par, out)
+    return par, out
+
+
+def gather_rows(x) -> torch.Tensor:
+    """The full tensor of a DTensor sharded on its axis 0 (rows on "dp"),
+    on the host. Over gloo each rank's rows are copied to the CPU and
+    gathered there, since gloo cannot all-gather CUDA tensors; over nccl
+    on the card. A plain tensor comes back on the host as it is."""
+    if not isinstance(x, DTensor):
+        return x.cpu()
+    if any(isinstance(p, Shard) and p.dim != 0 for p in x.placements):
+        raise ValueError("gather_rows gathers a tensor sharded on axis 0")
+    mesh = x.device_mesh
+    if dist.get_backend(mesh.get_group(0)) != "gloo":
+        return x.full_tensor().cpu()
+    local = x.to_local().detach().cpu().contiguous()
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            group = mesh.get_group(i)
+            parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, local, group=group)
+            local = torch.cat(parts)
+    return local
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +375,11 @@ class _GatherSeq(torch.autograd.Function):
 
 
 class Parallel:
-    """The collectives of one train step, from where its arguments lie.
-    Parallel() is one process: every method is the identity."""
+    """The collectives of one train step or one inference call, from where
+    its arguments lie. Parallel() is one process: every method is the
+    identity."""
+
+    reduces = 0  # reduce() calls that all-reduced, over every instance
 
     def __init__(self, tp=None, sp=None, batch_groups: tuple = ()):
         self.tp, self.sp, self.batch_groups = tp, sp, batch_groups
@@ -298,6 +414,37 @@ class Parallel:
         return cls(tp, mesh.get_group("sp") if "sp" in dims else None,
                    tuple(mesh.get_group(n) for n in dims))
 
+    @classmethod
+    def of_params(cls, tree) -> "Parallel":
+        """tp where a leaf of a param tree (a nested dict, or a list of its
+        leaves) is sharded on "tp": an inference call has no batch to read."""
+        leaves = tree if isinstance(tree, list) else _leaves(tree)
+        placed = [x for x in leaves if isinstance(x, DTensor)]
+        if not placed:
+            return cls()
+        mesh = placed[0].device_mesh
+        names = mesh.mesh_dim_names
+        if "tp" not in names:
+            return cls()
+        i = names.index("tp")
+        if any(isinstance(x.placements[i], Shard) for x in placed):
+            return cls(mesh.get_group("tp"))
+        return cls()
+
+    def reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """Megatron's g in inference (no autograd): this rank's partial sums
+        y of a row-parallel product (o_proj, down_proj: no bias) summed over
+        tp in fp32, then cast back to y's dtype; at tp = 1 that is y bit for
+        bit."""
+        if self.tp is None:
+            return y
+        s = y.to(torch.float32, memory_format=torch.contiguous_format)
+        if s is y:
+            s = y.clone()
+        dist.all_reduce(s, group=self.tp)
+        Parallel.reduces += 1
+        return s.to(y.dtype)
+
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.tp is None else _CopyToTP.apply(x, self.tp)
 
@@ -320,3 +467,6 @@ class Parallel:
         for g in grads:
             for group in self.batch_groups:
                 dist.all_reduce(g, group=group)
+
+
+SINGLE = Parallel()  # one process: every collective is the identity

@@ -31,9 +31,7 @@ from ..ops import rope as rope_ops
 from ..ops.attention import causal_mask, gqa_attention_full
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
-from .sharding import DTensor, Parallel, local_tensor
-
-SINGLE = Parallel()  # one process: every collective is the identity
+from .sharding import SINGLE, DTensor, Parallel, local_tensor
 
 
 def _unstack(tree, n: int) -> list:

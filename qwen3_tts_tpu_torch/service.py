@@ -38,6 +38,20 @@ graph of every key the service can reach, so traffic never captures. An
 unexpected worker crash fails the requests in flight (their streams raise
 ServiceClosed) and the worker restarts with a fresh batch, up to
 `max_worker_restarts` times (the budget resets after 600 s without a crash).
+
+Under a tp mesh (pipeline.params placed by parallel.sharding.shard_params)
+the service runs on tp rank 0 and TTSService.follow on every other rank.
+Admission depends on when requests reach rank 0, so only rank 0 decides:
+before each device call of a boundary its worker broadcasts the call over
+the tp group (_Channel): a prefill with its padded prompt rows, lengths
+and seeds, the deferred admit / park ops, each decode chunk with its
+temperatures. The followers repeat those calls on their shards; each
+lockstep step is eager (its all-reduces are not captured), and warmup
+captures nothing. Followers never vocode. An idle rank 0 sends a
+keep-alive every few seconds, so a follower waiting in the broadcast never
+reaches the process group's timeout; close() ends the followers. A worker
+crash under a mesh ends the service (a fresh batch cannot resynchronize
+the ranks).
 """
 
 from __future__ import annotations
@@ -52,11 +66,103 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models import generate as gen_mod
 from .models import prompt as prompt_mod
 from .models import serving as srv
+from .parallel import sharding as sh
 from .pipeline import AudioChunk
+
+
+# the commands of the tp group's channel
+_KEEPALIVE, _PREFILL, _OPS, _DECODE, _CLOSE = range(5)
+_PARK, _ADMIT = 0, 1
+_KEEPALIVE_S = 5.0
+
+
+class _Channel:
+    """Rank 0's command stream to the other ranks of a tp group: a fixed
+    int64 header (the command, its integer count, its integers) broadcast
+    from the group's first rank, then the command's tensors. Every call of
+    it is made on one thread (the worker's on rank 0, the follower's
+    elsewhere), in the same order on every rank."""
+
+    def __init__(self, group, batch_size: int):
+        self.group = group
+        self.src = dist.get_global_rank(group, 0)
+        # the longest command: a boundary's ops, a park and an admission of
+        # each slot at most, 4 integers each
+        self.size = 2 + 8 * batch_size
+        self.last = time.monotonic()
+
+    @classmethod
+    def of(cls, params: dict, batch_size: int) -> "_Channel | None":
+        par, _ = sh.local_params(params)
+        return None if par.tp is None else cls(par.tp, batch_size)
+
+    @property
+    def leader(self) -> bool:
+        return dist.get_rank() == self.src
+
+    def _bcast(self, t: torch.Tensor) -> None:
+        # as bytes, bit for bit: gloo carries no 16-bit type of a CUDA tensor
+        dist.broadcast(t.view(torch.uint8), self.src, group=self.group)
+
+    def send(self, op: int, ints=(), tensors=()) -> None:
+        ints = [int(x) for x in ints]
+        hdr = torch.zeros(self.size, dtype=torch.int64)
+        hdr[0], hdr[1] = op, len(ints)
+        hdr[2:2 + len(ints)] = torch.tensor(ints, dtype=torch.int64)
+        self._bcast(hdr)
+        for t in tensors:
+            self._bcast(t.contiguous())
+        self.last = time.monotonic()
+
+    def keepalive(self) -> None:
+        if time.monotonic() - self.last > _KEEPALIVE_S:
+            self.send(_KEEPALIVE)
+
+    def recv(self) -> tuple[int, list[int]]:
+        hdr = torch.zeros(self.size, dtype=torch.int64)
+        self._bcast(hdr)
+        n = int(hdr[1])
+        return int(hdr[0]), hdr[2:2 + n].tolist()
+
+    def recv_tensor(self, shape, like: torch.Tensor) -> torch.Tensor:
+        t = torch.empty(shape, dtype=like.dtype, device=like.device)
+        self._bcast(t)
+        return t
+
+
+def _temps_ints(temps: np.ndarray) -> list[int]:
+    """float32 temperatures as their bit patterns (the channel's header is
+    int64)."""
+    return np.asarray(temps, np.float32).view(np.int32).astype(np.int64).tolist()
+
+
+def _ints_temps(ints: list[int]) -> np.ndarray:
+    return np.asarray(ints, np.int64).astype(np.int32).view(np.float32)
+
+
+def _prefill_rows(params: dict, e, tr, lengths, totals, seeds, pad, statics):
+    """prefill_batched of padded prompt rows e [n, pb, H], tr [n, tb, H] and
+    their integers (lists)."""
+    dev = e.device
+    return srv.prefill_batched(params, e, srv._device_ints(lengths, dev), tr,
+                               srv._device_ints(totals, dev), pad, srv._device_ints(seeds, dev),
+                               statics)
+
+
+def _apply_ops(state, ops: list, fresh: dict, statics) -> None:
+    """The deferred boundary ops, (_PARK, slot, 0, 0) or (_ADMIT, slot,
+    fresh id, src), applied to `state` in place; fresh id -> a fresh
+    prefilled state."""
+    for op in ops:
+        if op[0] == _ADMIT:
+            srv.admit_stream(state, op[1], fresh[op[2]], statics, src=op[3])
+        else:
+            srv.park_slot(state, op[1])
 
 
 class ServiceClosed(RuntimeError):
@@ -225,6 +331,13 @@ class TTSService:
         self._seq = itertools.count()
         self.max_worker_restarts = max_worker_restarts
         self.worker_restarts = 0
+        self._channel = _Channel.of(pipeline.params, batch_size)
+        if self._channel is not None:
+            if not self._channel.leader:
+                raise ValueError("under a tp mesh the service runs on the tp group's first "
+                                 "rank; the other ranks call TTSService.follow")
+            self.max_worker_restarts = 0
+        self._fresh_ids = itertools.count()
         self._worker = threading.Thread(target=self._run, name="tts-service", daemon=True)
         self._worker.start()
 
@@ -345,7 +458,8 @@ class TTSService:
         (a B = 1 prefill and its admission), and the parks of their
         max_tokens finishes; then one graph per key, greedy and sampled, at
         the service's batch width, capacity and trailing bucket
-        (serving.capture; on CUDA). Warmup requests count in stats()."""
+        (serving.capture; on CUDA, and not under a tp mesh, whose steps run
+        eagerly). Warmup requests count in stats()."""
         first = self.submit("Warm up the serving path.", temperature=0.0,
                             max_tokens=max_tokens, seed=0, _bypass_queue_bound=True)
         it = first.chunks()
@@ -366,7 +480,7 @@ class TTSService:
             for _ in stream:
                 pass
         params = self.pipeline.params
-        if params["norm"]["w"].is_cuda:
+        if params["norm"]["w"].is_cuda and self._channel is None:
             template = self._prefill_bootstrap({0: first})
             for sampled in (False, True):
                 srv.capture(params, self.pipeline.cp_params, template, self.statics, sampled)
@@ -396,17 +510,22 @@ class TTSService:
         pads every prompt it accepts to the service's buckets."""
         return pd.input_embeds, pd.trailing_hidden
 
-    def _prefill(self, req: TTSRequest) -> srv.ServingState:
+    def _prefill_rows(self, e, tr, lengths, totals, seeds, pad, target: int) -> srv.ServingState:
+        """prefill_batched of padded rows e [n, pb, H], tr [n, tb, H], under
+        a tp mesh broadcast to the followers first. target: -1 for the
+        batch's state, else the id of a fresh state that admissions read."""
+        if self._channel is not None:
+            self._channel.send(_PREFILL, [target, *lengths, *totals, *seeds], (e, tr, pad))
+        return _prefill_rows(self.pipeline.params, e, tr, lengths, totals, seeds, pad,
+                             self.statics)
+
+    def _prefill(self, req: TTSRequest, target: int = -1) -> srv.ServingState:
         """A B = 1 prefill of one request."""
         p, t = prompt_mod.pd_lengths(req.pd)
         e, tr = self._padded_rows(req.pd)
-        dev = e.device
-        return srv.prefill_batched(
-            self.pipeline.params, e, srv._device_ints([p], dev), tr,
-            srv._device_ints([t], dev), req.pd.tts_pad_embed,
-            srv._device_ints([req.seed], dev), self.statics)
+        return self._prefill_rows(e, tr, [p], [t], [req.seed], req.pd.tts_pad_embed, target)
 
-    def _prefill_bootstrap(self, placed: dict) -> srv.ServingState:
+    def _prefill_bootstrap(self, placed: dict, target: int = -1) -> srv.ServingState:
         """ONE full-B prefill of the requests in `placed` (slot -> request):
         the batch's first state for a burst into an idle service, or the
         fresh state whose rows a burst into a running batch admits. One
@@ -424,13 +543,53 @@ class TTSService:
             lengths.append(p)
             totals.append(t)
             seeds.append(req.seed if slot in placed else 0)
-        e = torch.cat([r[0] for r in rows])
-        tr = torch.cat([r[1] for r in rows])
-        dev = e.device
-        return srv.prefill_batched(
-            self.pipeline.params, e, srv._device_ints(lengths, dev), tr,
-            srv._device_ints(totals, dev), ref.pd.tts_pad_embed,
-            srv._device_ints(seeds, dev), self.statics)
+        return self._prefill_rows(torch.cat([r[0] for r in rows]),
+                                  torch.cat([r[1] for r in rows]), lengths, totals, seeds,
+                                  ref.pd.tts_pad_embed, target)
+
+    @classmethod
+    def follow(cls, pipeline, *, batch_size: int = 8, chunk_steps: int = 6,
+               prompt_bucket: int | None = None, trailing_bucket: int | None = None,
+               **_audio_kwargs) -> None:
+        """The service's part on a tp rank other than the first: repeat, on
+        this rank's shards, each device call that rank 0's worker
+        broadcasts (prefills, admit / park ops, decode chunks) until rank
+        0's service closes. Takes the kwargs rank 0's TTSService took; the
+        audio ones are unused, since followers never vocode."""
+        channel = _Channel.of(pipeline.params, batch_size)
+        if channel is None or channel.leader:
+            raise ValueError("TTSService.follow runs on a tp rank other than the first, "
+                             "with the talker placed on the mesh")
+        pb = prompt_bucket or gen_mod.PROMPT_BUCKETS[2]
+        tb = trailing_bucket or gen_mod.TRAILING_BUCKETS[1]
+        statics = gen_mod.GenStatics(config=pipeline.config, capacity=pb + gen_mod.RING_SLACK,
+                                     chunk_steps=chunk_steps, track_cp_penalty=False)
+        like = sh.local_params(pipeline.params)[1]["norm"]["w"]
+        h = pipeline.config.hidden_size
+        state, fresh = None, {}
+        while True:
+            op, ints = channel.recv()
+            if op == _CLOSE:
+                return
+            if op == _PREFILL:
+                target, rest = ints[0], ints[1:]
+                n = len(rest) // 3
+                e = channel.recv_tensor((n, pb, h), like)
+                tr = channel.recv_tensor((n, tb, h), like)
+                pad = channel.recv_tensor((1, 1, h), like)
+                out = _prefill_rows(pipeline.params, e, tr, rest[:n], rest[n:2 * n],
+                                    rest[2 * n:], pad, statics)
+                if target < 0:
+                    state = out
+                else:
+                    fresh[target] = out
+            elif op == _OPS:
+                _apply_ops(state, [ints[i:i + 4] for i in range(0, len(ints), 4)], fresh,
+                           statics)
+                fresh.clear()
+            elif op == _DECODE:
+                *_, state = srv.decode_chunk_serving(pipeline.params, pipeline.cp_params, state,
+                                                     _ints_temps(ints), statics)
 
     def _fail_inbox(self, err: Exception) -> None:
         while True:
@@ -448,21 +607,25 @@ class TTSService:
         against crash loops: it resets after 600 s without a crash). A crash
         fails the requests in flight; the next ones get a fresh batch."""
         last_crash = None
-        while True:
-            try:
-                self._serve_once()
-                return  # clean shutdown
-            except Exception:
-                now = time.monotonic()
-                if last_crash is not None and now - last_crash > 600.0:
-                    self.worker_restarts = 0
-                last_crash = now
-                if self._stop.is_set() or self.worker_restarts >= self.max_worker_restarts:
-                    # give up: stop accepting and fail everything queued
-                    self._stop.set()
-                    self._fail_inbox(ServiceClosed("service is shut down"))
-                    return
-                self.worker_restarts += 1
+        try:
+            while True:
+                try:
+                    self._serve_once()
+                    return  # clean shutdown
+                except Exception:
+                    now = time.monotonic()
+                    if last_crash is not None and now - last_crash > 600.0:
+                        self.worker_restarts = 0
+                    last_crash = now
+                    if self._stop.is_set() or self.worker_restarts >= self.max_worker_restarts:
+                        # give up: stop accepting and fail everything queued
+                        self._stop.set()
+                        self._fail_inbox(ServiceClosed("service is shut down"))
+                        return
+                    self.worker_restarts += 1
+        finally:
+            if self._channel is not None:
+                self._channel.send(_CLOSE)  # the followers return
 
     def _serve_once(self) -> None:
         pl = self.pipeline
@@ -525,19 +688,23 @@ class TTSService:
         temps = np.full((b,), 1.0, np.float32)
         state = None
         pending = None  # (pull of chunk `it`'s frames and eos, its state)
-        ops: list[tuple] = []  # deferred boundary ops: ("admit", slot, fresh, src) | ("park", slot)
+        # deferred boundary ops: (_ADMIT, slot, fresh id, src) | (_PARK, slot,
+        # 0, 0); fresh id -> the fresh prefilled state they admit from
+        ops: list[tuple] = []
+        fresh: dict = {}
         it = 0
 
         def apply_ops(state):
-            for op in ops:
-                if op[0] == "admit":
-                    srv.admit_stream(state, op[1], op[2], self.statics, src=op[3])
-                else:
-                    srv.park_slot(state, op[1])
+            if self._channel is not None and ops:
+                self._channel.send(_OPS, [x for op in ops for x in op])
+            _apply_ops(state, ops, fresh, self.statics)
             ops.clear()
+            fresh.clear()
             return state
 
         def dispatch(state):
+            if self._channel is not None:
+                self._channel.send(_DECODE, _temps_ints(temps))
             frames, _counts, eos, state = srv.decode_chunk_serving(
                 pl.params, pl.cp_params, state, temps, self.statics)
             return srv._to_host(torch.cat([frames.reshape(-1), eos.long()])), state
@@ -564,6 +731,8 @@ class TTSService:
                                    else self._inbox.get_nowait())
                 except queue.Empty:
                     if idle:
+                        if self._channel is not None:
+                            self._channel.keepalive()
                         continue
                 while True:
                     try:
@@ -597,11 +766,14 @@ class TTSService:
                     state = self._prefill_bootstrap(bootstrap)
                 if len(midflight) == 1:  # one arrival: a B = 1 prefill
                     ((slot, req),) = midflight.items()
-                    ops.append(("admit", slot, self._prefill(req), 0))
+                    fid = next(self._fresh_ids)
+                    fresh[fid] = self._prefill(req, fid)
+                    ops.append((_ADMIT, slot, fid, 0))
                 elif midflight:  # a burst: one full-B prefill, rows admitted by slot
-                    fresh = self._prefill_bootstrap(midflight)
+                    fid = next(self._fresh_ids)
+                    fresh[fid] = self._prefill_bootstrap(midflight, fid)
                     for slot in midflight:
-                        ops.append(("admit", slot, fresh, slot))
+                        ops.append((_ADMIT, slot, fid, slot))
 
                 if state is None:
                     continue
@@ -637,7 +809,7 @@ class TTSService:
                         packer.drop(req)  # its buffered frames die with it
                         finish(req)
                         sv.req = None
-                        ops.append(("park", slot))
+                        ops.append((_PARK, slot, 0, 0))
                         continue
                     valid = frames_np[slot][frames_np[slot][:, 0] >= 0]
                     take = max(0, min(len(valid), req.max_tokens - req.emitted))
@@ -653,7 +825,7 @@ class TTSService:
                         finishing.append(req)
                         sv.req = None
                         if not eos_np[slot]:
-                            ops.append(("park", slot))
+                            ops.append((_PARK, slot, 0, 0))
 
                 # only queued here: the puller waits for the PCM and pushes
                 # the chunks while the next decode chunk runs
@@ -677,6 +849,7 @@ class TTSService:
             # later use of the graph on this stream)
             state = pending = None
             ops.clear()
+            fresh.clear()
             # stop this generation's puller, letting queued audio flush
             # (close(drain=True) counts the terminal pushes it makes)
             pq.put(None)

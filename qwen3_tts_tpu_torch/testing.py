@@ -643,6 +643,35 @@ def export_audio_encoder_checkpoint(params: dict, cfg: TokenizerEncoderConfig) -
 # ---------------------------------------------------------------------------
 
 
+class FakeByteTokenizer:
+    """Deterministic tokenizer for model tests (a copy of the JAX package's
+    testing.FakeByteTokenizer, so the two packages assemble the same
+    prompts): bytes to ids < 256, a non-ASCII character to 255, and the
+    chat specials to fixed ids."""
+
+    SPECIALS = {
+        "<|im_start|>": 300,
+        "<|im_end|>": 301,
+    }
+
+    def encode(self, text: str) -> list[int]:
+        ids: list[int] = []
+        rest = text
+        while rest:
+            for sp, sid in self.SPECIALS.items():
+                if rest.startswith(sp):
+                    ids.append(sid)
+                    rest = rest[len(sp):]
+                    break
+            else:
+                ids.append(rest.encode("utf-8")[0] if ord(rest[0]) < 128 else 255)
+                rest = rest[1:]
+        return ids
+
+    def decode(self, ids) -> str:
+        return "".join(chr(i) if i < 128 else "?" for i in ids)
+
+
 def make_tiny_tokenizer_json() -> dict:
     """A loadable tokenizer.json: byte-fallback vocab + chat specials."""
     vocab = {"<0x%02X>" % b: b for b in range(256)}

@@ -1,6 +1,7 @@
 """The port's package rules, checked without a model: it imports with jax,
 optax, orbax and the JAX package made unimportable (the checkpoint tools,
-the native BPE binding, profiling and their two scripts included), and CUDA
+the native BPE binding, profiling and their two scripts, and the
+tp-sharded inference entry points included), and CUDA
 asked for on a
 host without it raises before any model file is read or any process group
 is joined."""
@@ -36,6 +37,11 @@ def test_package_imports_without_jax():
         "for s in ('torch_audit_checkpoint', 'torch_verify_checkpoint'):\n"
         "    runpy.run_path(f'scripts/{s}.py', run_name='not_main')\n"
         "from qwen3_tts_tpu_torch.parallel import checkpoint, dryrun, sharding, train\n"
+        "assert dryrun.run_inference and dryrun.main_inference and sharding.local_params\n"
+        "assert sharding.gather_rows and sharding.Parallel.of_params\n"
+        "assert service.TTSService.follow and testing.FakeByteTokenizer\n"
+        "from qwen3_tts_tpu_torch.models import talker\n"
+        "assert talker.decoder_layers and talker.kv_heads\n"
         "from qwen3_tts_tpu_torch.ops.cuda import _build, pretransformer_kernel, "
         "quant_matmul, upsample_kernel, vocoder_kernels\n"
         "import chip_smoke\n"
