@@ -21,20 +21,28 @@ non-zero):
   kernels     - K3, K4, K4a, K5, K6, K7 and the SEANet blocks' upsample
                 against their plain PyTorch versions at the 0.6B main path's
                 shapes, fp32 and bf16, with times and bounds (K3 at M = 1,
-                2, 64, 300, the text projection's 3 and 114, the serving
-                step's 8 and 16 and the K3 configuration's batched prefill's
-                512 (the last three not summed in the kernels line); K7 at 4 and
-                6 bits on the mixed mode's linears, and one 2-, 3- and 8-bit
-                shape, each at M = 1 and M = 300, and the 4-bit text
-                projection at 3 and 114; K7's 4-bit product beside its
-                library call, torch._weight_int4pack_mm, at M = 1 gate/up,
-                o and down and the text projection at 3 and 114 (held
-                against K7's output); past their M0 (the tensor-core
-                tile) two calls bit-identical, one device kernel a call
-                (profiler), and a dense bf16 torch.matmul of the same shape
-                as a yardstick; the tile at every width and group size,
-                with and without biases, at ragged shapes; M0's sweep, GEMV
-                against tile at gate/up, fc1 and fc2 for M = 2..64; K4a at T = 26 and
+                2, 3, 4, 8, 16, 64, 300 and 512, the text projection's 114;
+                K7 at 4 and 6 bits on the mixed mode's linears, and one 2-,
+                3- and 8-bit shape, each at M = 1, 2, 3, 4, 8, 16 and 300,
+                and the 4-bit text projection at 114; only the M = 1, 3,
+                114 and 300 calls (and K3's 2 and 64) summed in the kernels
+                line, as before); on either side of M0 two calls
+                bit-identical; each bf16 call at M <= 16 also timed cold
+                (one CUDA graph of a call per copy of the weights, the
+                copies over 64 MB, so that the 50 MB L2 holds none of them
+                when its call comes) beside its warm time (a graph of one
+                call), its bound and the floor of an empty launch timed the
+                same cold way; K7's 4-bit product beside its library call,
+                torch._weight_int4pack_mm, at M = 1 gate/up, o and down and
+                the text projection at 3 and 114 (held against K7's
+                output), both timed warm and (M <= 16) cold; one device
+                kernel a call (profiler) for the GEMV and the tile, and a
+                dense bf16 torch.matmul of the same shape as a yardstick
+                past M0; K3 and K7 at every width and group size, with and
+                without biases, at ragged shapes, on both sides of M0;
+                M0's sweep, the GEMV against the tile, both cold, over the
+                serving step's and the text projection's shapes for M = 1,
+                2, 3, 4, 8 and 16, logged beside each wrapper's M0; K4a at T = 26 and
                 110, B = 1 and 2, and at T = 300, also against K4 on the
                 same weights (bf16: bit for bit, the same persistent launch;
                 fp32: the exact sequences), one device kernel a call with
@@ -190,7 +198,9 @@ the service's traffic, "launches_verify" on the verify phase and
 every kernel, and "launches_tp" on the tp phase's generate() on rank 0:
 the wrappers' calls, eager and captured, not the graph replays; K7's
 row also has its library call's time, torch._weight_int4pack_mm at its
-4-bit shapes, beside its own there) and the last is {"ok": true, "device": {...}}.
+4-bit shapes, beside its own there, warm and cold; K3's and K7's rows also
+their GEMV's M = 1 main-path calls summed warm, cold and as a bound, the
+cold floor, M0 and the sweep's M0) and the last is {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
 again by replaying a CUDA graph of it (device time, without Python's
@@ -459,9 +469,13 @@ def phase_kernels(rec: Record) -> None:
     kp = ptk.build_pretransformer_params(dense["pre_transformer"], cfg, torch.bfloat16)
     mats = weight_numel(kp, ("wi", "wqkv", "wo", "wgu", "wd", "wout"))
     kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
-    # K3 and K7 past their M0 run the tensor-core tile, one device kernel a
-    # call with K split (fc1 at M = 114) or not (gate/up at M = 300)
-    for name, k, o, m, bits in (("fc1", 2048, 2048, 114, None), ("gate_up", 1024, 6144, 300, 4)):
+    # K3 and K7 are one device kernel a call: the GEMV at M <= M0 (gate/up
+    # at M = 1; fc2 at M = 8, its K split across warps), past M0 the
+    # tensor-core tile with K split (fc1 at M = 114) or not (gate/up at
+    # M = 300); the kernel named is the one M0 picks
+    for name, k, o, m, bits in (("gate_up", 1024, 6144, 1, None), ("gate_up", 1024, 6144, 1, 4),
+                                ("fc2", 2048, 1024, 8, None), ("fc1", 2048, 2048, 114, None),
+                                ("gate_up", 1024, 6144, 300, 4)):
         x = randn(m, k).to(torch.bfloat16)
         w, s, b = qmm_weights(gen, dev, bits, k, o)
         if bits is None:
@@ -470,9 +484,11 @@ def phase_kernels(rec: Record) -> None:
             call = lambda: pm.packed_matmul_kernel(x, w, s, b, bits, 64)  # noqa: E731
         for _ in range(3):  # the first calls load the kernel and size the counters
             call()
+        gemv = m <= (qm.M0 if bits is None else pm.M0)
         one_kernel_per_call("int8_matmul" if bits is None else f"packed_matmul {bits}-bit",
-                            f"tile, {name} M={m} K={k} O={o}", call, time_ms(call, 20)[0],
-                            2 * m * k * o, expect="qt_qmm_tile_kernel")
+                            f"{'GEMV' if gemv else 'tile'}, {name} M={m} K={k} O={o}", call,
+                            time_ms(call, 20)[0], 2 * m * k * o,
+                            expect="qt_qmm_gemv_kernel" if gemv else "qt_qmm_tile_kernel")
     fp = ptk.build_pretransformer_fused_params(dense["pre_transformer"], cfg, torch.bfloat16)
     for b, t in ((1, 26), (1, 110), (2, 110)):
         x = randn(b, t, cfg.latent_dim).to(torch.bfloat16)
@@ -508,16 +524,28 @@ def phase_kernels(rec: Record) -> None:
 
     # K3 at every linear shape of the 0.6B talker / code predictor
     # (qkv, o, gate/up, down, codec_head, text fc1, fc2, cp lm_head), and at
-    # the text projection's own rows (M = 3 and 114) on fc1 and fc2; past
-    # M0 the tile, whose two calls give the same bits. K3 and K7 are timed
+    # the text projection's own rows (M = 3 and 114) on fc1 and fc2; on
+    # either side of M0 two calls give the same bits. K3 and K7 are timed
     # by CUDA-graph replay: at 0.01-0.06 ms a call their back-to-back event
-    # time reads the wrapper's host dispatch (0.03-0.17 ms)
+    # time reads the wrapper's host dispatch (0.03-0.17 ms). Each bf16 call
+    # at M <= 16 is also timed cold (cold_ms: the weights in copies over 64
+    # MB), beside the floor of an empty launch timed the same way
+    floors = {(blocks, store): launch_floor_ms(blocks, store)
+              for blocks in (1, 264) for store in (False, True)}
+    log("[kernels] floor: an empty kernel launched the cold way (one CUDA graph of 64 "
+        "launches) " + ", ".join(f"{v:.4f} ms at {n} block(s) of 256 threads"
+                                 f"{' writing a float a block' if st else ''}"
+                                 for (n, st), v in floors.items()))
+    for name in ("int8_matmul", "packed_matmul"):
+        rec.rows[name]["floor_cold_ms"] = floors[264, False]
+        rec.rows[name]["floor_store_cold_ms"] = floors[264, True]
     shapes = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024),
               (1024, 3072), (2048, 2048), (1024, 2048)]
     for k, o in shapes:
         w8, s, b = qmm_weights(gen, dev, None, k, o)
-        rows = ((1, 2, 3, 8, 16, 64, 114, 300, 512) if k == 2048
-                else (1, 2, 8, 16, 64, 300, 512))
+        copies = cold_copies(w8, s, b)
+        rows = ((1, 2, 3, 4, 8, 16, 64, 114, 300, 512) if k == 2048
+                else (1, 2, 3, 4, 8, 16, 64, 300, 512))
         for dtype in ("float32", "bfloat16"):
             for m in rows:
                 x = randn(m, k).to(getattr(torch, dtype))
@@ -525,15 +553,20 @@ def phase_kernels(rec: Record) -> None:
                 ref = qm.int8_matmul_plain(x, w8, s, b)
                 it = 50 if m <= 3 else 10
                 nb = nbytes(x, w8, s, b, got)
+                warm = graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b))
                 rec.compare("int8_matmul", f"M={m} K={k} O={o}", dtype, got, ref,
-                            (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b)), "graph"),
+                            (warm, "graph"),
                             time_ms(lambda: qm.int8_matmul_plain(x, w8, s, b), it),
-                            nb, {dtype: 2 * m * k * o}, timed=m not in (8, 16, 512))
-                if m > qm.M0:
-                    same_bits("int8_matmul", f"M={m} K={k} O={o} {dtype}", got,
-                              lambda: qm.int8_matmul_kernel(x, w8, s, b))
+                            nb, {dtype: 2 * m * k * o}, timed=m not in (4, 8, 16, 512))
+                same_bits("int8_matmul", f"M={m} K={k} O={o} {dtype}", got,
+                          lambda: qm.int8_matmul_kernel(x, w8, s, b))
+                if dtype == "bfloat16" and m <= 16:
+                    cold_row(rec, "int8_matmul", ("K3", k, o, m), m <= qm.M0, warm,
+                             cold_ms([lambda c=c: qm.int8_matmul_kernel(x, *c) for c in copies]),
+                             nb, {dtype: 2 * m * k * o}, len(copies))
                 if dtype == "bfloat16" and m in (114, 300):
                     dense_yardstick("int8_matmul", x, o, f"M={m} K={k} O={o}")
+        del copies
 
     # K7 at the mixed 4/6-bit mode's 0.6B linears (4-bit gate/up, o, down;
     # 6-bit qkv and codec head: the main path's, timed) and one 2-, 3- and
@@ -546,7 +579,9 @@ def phase_kernels(rec: Record) -> None:
               (2, 2048, 2048, False), (3, 1024, 2048, False), (8, 3072, 1024, False)]
     for bits, k, o, main in packed:
         wq, s, b = qmm_weights(gen, dev, bits, k, o)
-        rows = (1, 3, 114, 300) if (bits, k) == (4, 2048) else (1, 300)
+        copies = cold_copies(wq, s, b)
+        rows = (1, 2, 3, 4, 8, 16, 114, 300) if (bits, k) == (4, 2048) else (1, 2, 3, 4, 8, 16,
+                                                                               300)
         for dtype in ("float32", "bfloat16"):
             for m in rows:
                 x = randn(m, k).to(getattr(torch, dtype))
@@ -556,21 +591,29 @@ def phase_kernels(rec: Record) -> None:
                 err = rel_rms(got.float(), ref.float())
                 if not bool(torch.isfinite(got.float()).all()):
                     err = float("nan")
+                nb = nbytes(x, wq, s, b, got)
                 k7_ms = graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
                 rec.add("packed_matmul", f"{bits}-bit M={m} K={k} O={o}", dtype, err,
                         float((got.float() - ref.float()).abs().max()), TOL[dtype],
                         (k7_ms, "graph"),
                         time_ms(lambda: pm.packed_matmul_plain(x, wq, s, b, bits, 64), it),
-                        nbytes(x, wq, s, b, got), {dtype: 2 * m * k * o}, timed=main)
+                        nb, {dtype: 2 * m * k * o}, timed=main and m in (1, 3, 114, 300))
+                same_bits("packed_matmul", f"{bits}-bit M={m} K={k} O={o} {dtype}", got,
+                          lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
+                k7_cold = None
+                if dtype == "bfloat16" and m <= 16:
+                    k7_cold = cold_ms([lambda c=c: pm.packed_matmul_kernel(x, *c, bits, 64)
+                                       for c in copies])
+                    cold_row(rec, "packed_matmul", (f"K7 {bits}-bit", k, o, m), m <= pm.M0,
+                             k7_ms, k7_cold, nb, {dtype: 2 * m * k * o}, len(copies), main)
                 if bits == 4 and dtype == "bfloat16" and (k, o, m) in K7_LIBRARY_SHAPES:
-                    int4pack_library(rec, x, wq, s, b, got, k7_ms)
-                if m > pm.M0:
-                    same_bits("packed_matmul", f"{bits}-bit M={m} K={k} O={o} {dtype}", got,
-                              lambda: pm.packed_matmul_kernel(x, wq, s, b, bits, 64))
+                    int4pack_library(rec, x, wq, s, b, got, k7_ms, copies, k7_cold)
                 if dtype == "bfloat16" and m in (114, 300) and bits == 4:
                     dense_yardstick("packed_matmul", x, o, f"{bits}-bit M={m} K={k} O={o}")
-    tile_widths(rec, gen, dev)
-    m0_sweep(gen, dev)
+        del copies
+        torch.cuda.empty_cache()
+    qmm_widths(rec, gen, dev)
+    rec.m0_swept = m0_sweep(gen, dev)
 
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -676,33 +719,80 @@ def phase_kernels(rec: Record) -> None:
     torch.cuda.synchronize()
 
 
-def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float) -> None:
+def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
+                     k7_cold: float | None = None) -> None:
     """The library call for K7's 4-bit product: torch._weight_int4pack_mm
     on the same weights. MLX's w = s q + b is its (q - 8) scale + zero with
     scale = s and zero = b + 8 s, in bf16 [K / 64, O, 2]; the nibbles go
     two a byte, the even column high, then into its tile layout. Held
     against K7's output at TOL["bfloat16"] (scale and zero rounded to bf16
-    are another function by ~2^-9 of a weight) and timed by graph replay."""
+    are another function by ~2^-9 of a weight) and timed as K7 was: by
+    graph replay, and where K7 was timed cold (`k7_cold`) cold too, on its
+    own copies of the same weights."""
     import torch
 
-    from qwen3_tts_tpu_torch.ops.quant import unpack_bits_torch
-
     m, k = x.shape
-    q = unpack_bits_torch(wq, 4, k).to(torch.int32)
-    packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
-    sz = torch.stack([s, b + 8 * s], dim=-1).transpose(0, 1).contiguous().to(torch.bfloat16)
+    packed, sz = int4pack_weights(wq, s, b, k)
     lib = torch._weight_int4pack_mm(x, packed, 64, sz)
     err = rel_rms(lib.float(), got.float())
     ms = graph_ms(lambda: torch._weight_int4pack_mm(x, packed, 64, sz))
     ok = err <= TOL["bfloat16"]
+    cold = ""
+    row = rec.rows["packed_matmul"]
+    if k7_cold is not None:
+        packs = [int4pack_weights(*c, k) for c in copies]
+        lib_cold = cold_ms([lambda pz=pz: torch._weight_int4pack_mm(x, pz[0], 64, pz[1])
+                            for pz in packs])
+        del packs
+        cold = (f"; cold {lib_cold:.4f} ms against K7 {k7_cold:.4f} ms: K7 "
+                f"{'no slower' if k7_cold <= lib_cold else 'SLOWER'}")
+        row["library_cold_ms"] = row.get("library_cold_ms", 0.0) + lib_cold
+        row["cold_ms_at_library_shapes"] = row.get("cold_ms_at_library_shapes", 0.0) + k7_cold
     log(f"[kernels] library, packed_matmul 4-bit M={m} K={k} O={got.shape[1]}: "
-        f"torch._weight_int4pack_mm {ms:.4f} ms (graph) against K7 {k7_ms:.4f} ms; "
-        f"rel_rms against K7 {err:.3e} (tol {TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}")
+        f"torch._weight_int4pack_mm {ms:.4f} ms (graph) against K7 {k7_ms:.4f} ms: K7 "
+        f"{'no slower' if k7_ms <= ms else 'SLOWER'}{cold}; rel_rms against K7 {err:.3e} "
+        f"(tol {TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("torch._weight_int4pack_mm disagrees with K7")
-    row = rec.rows["packed_matmul"]
     row["library_ms"] = (row["library_ms"] or 0.0) + ms
     row["ms_at_library_shapes"] = row.get("ms_at_library_shapes", 0.0) + k7_ms
+
+
+# cold ms of the bf16 calls at M <= 16: (kernel, K, O, M) -> ms, kernel "K3"
+# or "K7 <bits>-bit" (cold_row), and "tile ..." (m0_sweep); M0's sweep reads it
+COLD: dict = {}
+
+
+def cold_row(rec: Record, name: str, key: tuple, gemv: bool, warm: float, cold: float,
+             nb: int, ops: dict, copies: int, main: bool = True) -> None:
+    """Logs one bf16 call's cold time beside its warm one, its bound and the
+    floor, keeps it in COLD, and adds the main path's M = 1 GEMV calls to
+    the kernel's row (gemv_warm_ms, gemv_cold_ms, gemv_bound_ms)."""
+    b_ms, b_by = bound(nb, ops)
+    row = rec.rows[name]
+    kern, k, o, m = key
+    log(f"[kernels] {name} cold, {kern} M={m} K={k} O={o} bf16 ({'GEMV' if gemv else 'tile'}): "
+        f"cold {cold:.4f} ms ({copies} copies of the weights in one graph), warm {warm:.4f} ms "
+        f"(graph of one call); bound {b_ms:.4f} ms ({b_by}): {cold / b_ms:.2f}x cold, "
+        f"{warm / b_ms:.2f}x warm; floor {row['floor_cold_ms']:.4f} ms, "
+        f"{row['floor_store_cold_ms']:.4f} ms writing")
+    COLD[(kern if gemv else "tile " + kern), k, o, m] = cold
+    if gemv and main and m == 1:
+        for field, v in (("gemv_warm_ms", warm), ("gemv_cold_ms", cold), ("gemv_bound_ms", b_ms)):
+            row[field] = row.get(field, 0.0) + v
+
+
+def int4pack_weights(wq, s, b, k: int):
+    """K7's 4-bit weights (group 64) as torch._weight_int4pack_mm takes
+    them: (packed tiles, [K / 64, O, 2] bf16 scale and zero)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.quant import unpack_bits_torch
+
+    q = unpack_bits_torch(wq, 4, k).to(torch.int32)
+    packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([s, b + 8 * s], dim=-1).transpose(0, 1).contiguous().to(torch.bfloat16)
+    return packed, sz
 
 
 def qmm_weights(gen, dev, bits: int | None, k: int, o: int):
@@ -742,20 +832,22 @@ def dense_yardstick(name: str, x, o: int, label: str) -> None:
         f"{2 * x.shape[0] * x.shape[1] * o / ms / 1e9:.1f} TFLOP/s)")
 
 
-def tile_widths(rec: Record, gen, dev) -> None:
-    """K3 and K7 past their M0 at every width the tile takes: K3, and K7
+def qmm_widths(rec: Record, gen, dev) -> None:
+    """K3 and K7 at every width they take, on both sides of M0: K3, and K7
     at 2, 3, 4, 6 and 8 bits, group sizes 32, 64 and 128, with and without
-    biases, at ragged shapes (M = 9 and 130 rows, O = 200 columns, K = 352
-    at group 32: half a K step past the last whole one), fp32 and bf16 x,
-    against their plain versions; every call is one launch and two calls
-    give the same bits."""
+    biases, at ragged shapes (O = 200 columns, K = 352 at group 32: half a
+    tile K step past the last whole one), fp32 and bf16 x, against their
+    plain versions: the GEMV at M = 1, 3 and 8 rows (where M0 reaches them),
+    the tile at M = M0 + 1 and 130; every call is one launch of the path
+    M0 gives it and two calls give the same bits."""
     import torch
 
     from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
     from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
     o, worst, n = 200, {}, 0
-    for m in (9, 130):
+    past = max(qm.M0, pm.M0) + 1
+    for m in (1, 3, 8, past, 130):
         for dtype in (torch.float32, torch.bfloat16):
             cases = []
             x = torch.randn(m, 320, generator=gen, device=dev).to(dtype)
@@ -778,38 +870,50 @@ def tile_widths(rec: Record, gen, dev) -> None:
                                       lambda a=args: pm.packed_matmul_kernel(*a),
                                       lambda a=args: pm.packed_matmul_plain(*a)))
             for name, label, mod, kernel, plain in cases:
+                path = "GEMV" if m <= mod.M0 else "tile"
+                if path == "GEMV" and m not in (1, 3, 8) or path == "tile" and m < past:
+                    continue
                 label = f"{label} M={m} {str(dtype)[6:]}"
                 before = mod.launches
                 got = kernel()
-                if mod.launches != before + 1 or m <= mod.M0:
-                    raise SystemExit(f"[kernels] tile {name} {label}: not one launch of the tile")
+                if mod.launches != before + 1:
+                    raise SystemExit(f"[kernels] {path} {name} {label}: not one launch")
                 ref = plain()
                 err = rel_rms(got.float(), ref.float())
                 tol = TOL[str(dtype)[6:]]
                 if not (err <= tol and bool(torch.isfinite(got.float()).all())):
-                    raise SystemExit(f"[kernels] tile {name} {label}: rel RMS {err:.3e} "
+                    raise SystemExit(f"[kernels] {path} {name} {label}: rel RMS {err:.3e} "
                                      f"(tol {tol:g})")
                 same_bits(name, label, got, kernel)
                 row = rec.rows[name]
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          float((got.float() - ref.float()).abs().max()))
-                key = (name, str(dtype)[6:])
+                key = (path, name, str(dtype)[6:])
                 worst[key] = max(worst.get(key, 0.0), err)
                 n += 1
-    log(f"[kernels] the tile at every width past M0: {n} calls (K3; K7 at 2/3/4/6/8 bits, "
-        f"groups 32/64/128, with and without biases; M = 9 and 130, O = 200, K = 320-384), "
-        f"worst rel RMS " + ", ".join(f"{k[0]} {k[1]} {e:.3e}" for k, e in sorted(worst.items()))
+    log(f"[kernels] K3 and K7 at every width on both sides of M0 (K3 {qm.M0}, K7 {pm.M0}): "
+        f"{n} calls (K3; K7 at 2/3/4/6/8 bits, groups 32/64/128, with and without biases; the "
+        f"GEMV at M = 1, 3, 8, the tile at M = {past} and 130; O = 200, K = 320-384), worst "
+        f"rel RMS " + ", ".join(f"{k[0]} {k[1]} {k[2]} {e:.3e}" for k, e in sorted(worst.items()))
         + " (tol 1e-4 fp32, 2e-2 bf16); two calls bit-identical in each")
 
 
-def m0_sweep(gen, dev) -> None:
-    """M0's sweep: the GEMV and the tile for M = 2..64 at gate/up (1024 ->
-    6144) and the text projection's fc1 (2048 -> 2048) and fc2 (2048 ->
-    1024), bf16 x, K3 and K7 at 4 bits, device time (CUDA-graph replay).
-    The M0 it gives a kernel is the largest M at which the GEMV is faster
-    summed over fc1 and fc2, the text projection's shapes: the only calls
-    with 1 < M <= 8 on a pipeline path (decode runs M = 1, prefill M = 9);
-    logged beside each wrapper's M0."""
+# (name, K, O): the shapes M0's sweep sums over: the serving step's (qkv,
+# o, gate/up, down, codec head, cp lm head) and the text projection's fc1
+# and fc2
+M0_SHAPES = (("qkv", 1024, 4096), ("o", 2048, 1024), ("gate/up", 1024, 6144),
+             ("down", 3072, 1024), ("codec head", 1024, 3072), ("cp lm head", 1024, 2048),
+             ("fc1", 2048, 2048), ("fc2", 2048, 1024))
+M0_ROWS = (1, 2, 3, 4, 8, 16)
+
+
+def m0_sweep(gen, dev) -> dict:
+    """M0's sweep: the GEMV against the tile at M0_SHAPES for M = 1, 2, 3,
+    4, 8 and 16, bf16 x, K3 and K7 at 4 bits, both cold (cold_ms; the
+    GEMV's times are the kernels phase's where it took them, COLD). The M0
+    it gives a kernel is the largest M at which the GEMV, summed over the
+    shapes, is faster than the tile there and at every smaller M swept;
+    logged beside each wrapper's M0. Returns {kernel: swept M0}."""
     import torch
 
     from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
@@ -818,30 +922,48 @@ def m0_sweep(gen, dev) -> None:
     keep = qm.M0, pm.M0
     total: dict = {}
     try:
-        for name, k, o in (("gate/up", 1024, 6144), ("fc1", 2048, 2048), ("fc2", 2048, 1024)):
-            w8, s, b = qmm_weights(gen, dev, None, k, o)
-            wq, s4, b4 = qmm_weights(gen, dev, 4, k, o)
-            for m in (2, 3, 4, 8, 16, 32, 64):
+        for name, k, o in M0_SHAPES:
+            weights = {"K3": qmm_weights(gen, dev, None, k, o),
+                       "K7 4-bit": qmm_weights(gen, dev, 4, k, o)}
+            copies = {kern: cold_copies(*w) for kern, w in weights.items()}
+            for m in M0_ROWS:
                 x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
                 t = {}
-                for path, m0 in (("gemv", 1 << 30), ("tile", 0)):
-                    qm.M0 = pm.M0 = m0
-                    t["K3", path] = graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s, b))
-                    t["K7", path] = graph_ms(lambda: pm.packed_matmul_kernel(x, wq, s4, b4, 4, 64))
-                for key, v in t.items():
-                    if name != "gate/up":
-                        total[key + (m,)] = total.get(key + (m,), 0.0) + v
-                log(f"[kernels] M0 sweep, {name} M={m}: K3 GEMV {t['K3', 'gemv']:.4f} ms, tile "
-                    f"{t['K3', 'tile']:.4f}; K7 4-bit GEMV {t['K7', 'gemv']:.4f}, tile "
-                    f"{t['K7', 'tile']:.4f} (graph)")
+                for kern, cps in copies.items():
+                    def fns():
+                        if kern == "K3":
+                            return [lambda c=c: qm.int8_matmul_kernel(x, *c) for c in cps]
+                        return [lambda c=c: pm.packed_matmul_kernel(x, *c, 4, 64) for c in cps]
+
+                    qm.M0 = pm.M0 = 1 << 30
+                    t[kern, "gemv"] = COLD.get((kern, k, o, m)) or cold_ms(fns())
+                    qm.M0 = pm.M0 = 0
+                    t[kern, "tile"] = COLD.get(("tile " + kern, k, o, m)) or cold_ms(fns())
+                    COLD["tile " + kern, k, o, m] = t[kern, "tile"]
+                    for path in ("gemv", "tile"):
+                        total[kern, path, m] = total.get((kern, path, m), 0.0) + t[kern, path]
+                log(f"[kernels] M0 sweep, {name} M={m} (cold): K3 GEMV {t['K3', 'gemv']:.4f} ms, "
+                    f"tile {t['K3', 'tile']:.4f}; K7 4-bit GEMV {t['K7 4-bit', 'gemv']:.4f}, "
+                    f"tile {t['K7 4-bit', 'tile']:.4f}")
+            del copies, weights
+            torch.cuda.empty_cache()
     finally:
         qm.M0, pm.M0 = keep
-    swept = {kern: max([m for m in (2, 3, 4, 8, 16, 32, 64)
-                        if total[kern, "gemv", m] < total[kern, "tile", m]], default=1)
-             for kern in ("K3", "K7")}
-    log(f"[kernels] M0 sweep: the GEMV is faster summed over fc1 and fc2 up to M = "
-        f"{swept['K3']} (K3), {swept['K7']} (K7 4-bit); the wrappers' M0: K3 {qm.M0}, "
+    swept = {}
+    for kern in ("K3", "K7 4-bit"):
+        m0 = 0
+        for m in M0_ROWS:
+            if total[kern, "gemv", m] >= total[kern, "tile", m]:
+                break
+            m0 = m
+        swept[kern] = m0
+        log(f"[kernels] M0 sweep, {kern} summed over {len(M0_SHAPES)} shapes (cold): "
+            + ", ".join(f"M={m} GEMV {total[kern, 'gemv', m]:.4f} / tile "
+                        f"{total[kern, 'tile', m]:.4f} ms" for m in M0_ROWS))
+    log(f"[kernels] M0 sweep: the GEMV is faster summed over the shapes up to M = "
+        f"{swept['K3']} (K3), {swept['K7 4-bit']} (K7 4-bit); the wrappers' M0: K3 {qm.M0}, "
         f"K7 {pm.M0}")
+    return swept
 
 
 def graph_ms(fn, iters: int = 50) -> float:
@@ -860,6 +982,61 @@ def graph_ms(fn, iters: int = 50) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(lambda: [graph.replay() for _ in range(iters)]) / iters
+
+
+# the weights of a cold call: copies that together pass the 50 MB L2
+COLD_BYTES = 64 << 20
+
+
+def cold_copies(*tensors, min_copies: int = 4) -> list:
+    """Copies of `tensors` (a call's weights), as many as it takes for the
+    copies together to pass COLD_BYTES: a call on one copy finds its bytes
+    evicted by the calls on the others."""
+    n = max(min_copies, -(-COLD_BYTES // max(nbytes(*tensors), 1)) + 1)
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+
+
+def cold_ms(fns, reps: int = 3) -> float:
+    """ms a call with its weights cold, amortised: one CUDA graph of
+    len(fns) calls, each fn on its own copy of the weights (cold_copies),
+    replayed; the least of `reps` replays over the calls. The graph also
+    drops the host's launch from each call."""
+    import torch
+
+    for fn in fns[:2]:
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = min(_events_ms(graph.replay) for _ in range(reps))
+    del graph
+    return best / len(fns)
+
+
+def launch_floor_ms(blocks: int, store: bool = False, n: int = 64) -> float:
+    """An empty kernel of `blocks` blocks of 256 threads (csrc/
+    launch_floor.cu), writing one float a block where `store`, launched n
+    times in one CUDA graph as cold_ms launches a call: the floor under a
+    GEMV's cold time."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import _build
+
+    outs = [torch.empty(blocks, device="cuda") if store else None for _ in range(n)]
+
+    def launch(out):
+        _build.check(_build.lib().qt_empty_launch(blocks, 256, _build.ptr(out), _build.stream()),
+                     "qt_empty_launch")
+
+    return cold_ms([lambda o=o: launch(o) for o in outs])
 
 
 def upsample_ops(sp: dict, t: int) -> int:
@@ -2021,18 +2198,18 @@ def graph_vs_eager(pl, card: str, steps: int = 8):
     return frames
 
 
-def batch_vs_single(pl, card: str, frames) -> None:
+def batch_vs_single(pl, card: str, frames, label: str = "serving") -> None:
     """B = 8 against B = 1, teacher-forced over the graph run's frames: the
     talker logits after each step of streams 0 and 6 (the shortest and the
     longest text) at B = 1 against the same stream's at B = 8."""
     valid = (frames[..., 0] >= 0).all(0)  # steps every stream emitted
     steps = int(valid.long().cumprod(0).sum())
     if steps < 4:
-        raise SystemExit(f"[serving] only {steps} steps where every stream emitted")
+        raise SystemExit(f"[{label}] only {steps} steps where every stream emitted")
     statics = _statics(pl, steps)
     wide = _serving_state(pl, SERVE_TEXTS, statics)
     singles = {j: _serving_state(pl, SERVE_TEXTS[j:j + 1], statics) for j in (0, 6)}
-    held_against_single(pl, card, "serving", statics, wide, singles, frames[:, :steps])
+    held_against_single(pl, card, label, statics, wide, singles, frames[:, :steps])
 
 
 def _greedy_scores(state: dict, statics):
@@ -2589,12 +2766,15 @@ def serving_k3(pl, card: str):
     check_counts("k3-serving", launches, need=("int8_matmul",),
                  idle=tuple(k for k in KERNELS if k != "int8_matmul"))
     step_times(pl, card, "k3-serving", widths=(8,))
+    # B = 8 runs K3 at M = 8 (the GEMV where M0 >= 8, else the tile), B = 1
+    # at M = 1: the same TOL_BATCH as the `w8r` serving step
+    batch_vs_single(pl, card, frames, "k3-serving")
     return launches
 
 
-# K3's device kernels: its GEMV, and the shared tile at 8 bits (K7's 8-bit
-# tile has the same name; K7 is idle in the K3 configuration)
-K3_NAMES = re.compile(r"qt_int8_matmul_kernel|qt_qmm_tile_kernel<8,")
+# K3's device kernels: the shared GEMV and tile at 8 bits (K7's 8-bit ones
+# have the same names; K7 is idle in the K3 configuration)
+K3_NAMES = re.compile(r"qt_qmm_gemv_kernel<8,|qt_qmm_tile_kernel<8,")
 
 
 def replayed_k3(g, n: int) -> int:
@@ -4029,6 +4209,15 @@ def main() -> int:
             row["ms_at_library_shapes"] = r["ms_at_library_shapes"]
         if name == "packed_matmul":  # its two paths
             row["launches"] = launches["prequant"][name] + launches["mixed"][name]
+        if name in ("int8_matmul", "packed_matmul"):  # the GEMV at M <= M0, cold and warm
+            for field in ("gemv_warm_ms", "gemv_cold_ms", "gemv_bound_ms", "floor_cold_ms",
+                          "floor_store_cold_ms", "library_cold_ms",
+                          "cold_ms_at_library_shapes"):
+                if field in r:
+                    row[field] = r[field]
+            mod = "K3" if name == "int8_matmul" else "K7 4-bit"
+            row["m0"] = counters()[name][0].M0
+            row["m0_swept"] = rec.m0_swept[mod]
         if name == "pre_transformer_fused":  # its own entry point
             row["launches"] = launches["fused_path"][name]
         if name == "gumbel_sample":  # its own entry point

@@ -136,6 +136,7 @@ _SIGNATURES = {
     "qt_grid_barrier_grid": [_I, _P],
     "qt_grid_barriers": [_I, _I, _I, _P],
     "qt_gumbel_sample": [_P, _I, _F, _P, _I, _P, _P],
+    "qt_empty_launch": [_I, _I, _P, _P],
 }
 
 

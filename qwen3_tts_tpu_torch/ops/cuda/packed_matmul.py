@@ -6,8 +6,9 @@ the MLX row-major little-endian bitstream (uint32 [O, K * bits / 32]),
 fp32 scales / biases [O, K / gs] (missing biases count as zero), dequant as
 s * q + b and accumulation in fp32, output in x's dtype. The kernel takes
 bits 2, 3, 4, 6, 8 and group sizes 32, 64, 128 on the checkpoint's own rows:
-no lane-permuted copy, no cap on M. One launch a call: the GEMV at M <=
-M0 rows, the tensor-core tile of csrc/qmm_tile.cuh above.
+no lane-permuted copy, no cap on M. One launch a call: the GEMV of
+csrc/qmm_gemv.cuh (shared with K3) at M <= M0 rows, the tensor-core tile
+of csrc/qmm_tile.cuh above.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ from . import _build, qmm_tile
 
 BITS = (2, 3, 4, 6, 8)
 GROUP_SIZES = (32, 64, 128)
-# M <= M0 rows run the GEMV, more the tile: the largest M at which the GEMV
-# (fewer bytes than K3's, vector loads of x) is faster summed over the text
-# projection's fc1 and fc2, the only calls with 1 < M <= 8 on a pipeline
-# path (M0's sweep in chip_smoke.py's kernels phase, PERF.md)
-M0 = 8
+# M <= M0 rows run the GEMV (csrc/qmm_gemv.cuh, shared with K3), more the
+# tile: the largest M at which the GEMV at 4 bits, timed cold and summed
+# over the serving step's and the text projection's shapes, is faster than
+# the tile there and at every smaller M of the sweep (M = 1, 2, 3, 4, 8,
+# 16: chip_smoke.py's m0_sweep, which logs its M0 beside this one; PERF.md)
+M0 = 16
 launches = 0  # kernel launches since the last reset
 
 

@@ -1,7 +1,8 @@
 """The tensor-core tile behind K3 and K7 at M > M0 rows (csrc/qmm_tile.cuh;
 each wrapper holds its own M0):
 its plan, in pure Python so that a CPU test can check it, and the launch
-arguments the two wrappers hand their C entries.
+arguments the two wrappers hand their C entries (the GEMV's plan at M <=
+M0 is ops/cuda/qmm_gemv.py's).
 
 A call cuts the [M, N] output into tiles of BM = 64 rows by BN = 128
 columns, and K into `ks` runs of whole units (a unit is one K step of 64
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import persistent
+from . import persistent, qmm_gemv
 from ._build import is_bf16
 
 BM, BN, BK, STAGES, LD = 64, 128, 64, 4, 72
@@ -99,12 +100,12 @@ def _sms(index: int | None) -> int:
 
 def launch_args(x: torch.Tensor, n: int, gs: int, bits: int, m0: int):
     """(m0, ks, part, cnt) for a C entry on x [M, K]: the GEMV's bound (the
-    wrapper's M0) and, for M > m0, the tile's K split with its split-K
-    workspace and counters (None where ks == 1). The caller keeps `part`
-    alive over the launch."""
+    wrapper's M0); for M <= m0 the GEMV's K split (qmm_gemv.plan's lanes),
+    for M > m0 the tile's with its split-K workspace and counters (None
+    where ks == 1). The caller keeps `part` alive over the launch."""
     m, k = x.shape
     if m <= m0:
-        return m0, 1, None, None
+        return m0, qmm_gemv.plan(m, n, k, bool(is_bf16(x))).ks, None, None
     p = plan(m, n, k, gs, bits, bool(is_bf16(x)), _sms(x.device.index))
     if p.ks == 1:
         return m0, 1, None, None

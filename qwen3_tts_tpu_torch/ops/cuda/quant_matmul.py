@@ -3,8 +3,9 @@
 Counterpart of qwen3_tts_tpu/ops/pallas/quant_matmul.py::
 quantized_matmul_int8_pallas / int8_matmul: y = x @ (scales * w8 + biases).T
 with uint8 weights [O, K], fp32 scales/biases [O, K/64], dequant and
-accumulation in fp32, output in x's dtype. One launch a call: the GEMV at
-M <= M0 rows, the tensor-core tile of csrc/qmm_tile.cuh above.
+accumulation in fp32, output in x's dtype. One launch a call: the GEMV of
+csrc/qmm_gemv.cuh at M <= M0 rows, the tensor-core tile of
+csrc/qmm_tile.cuh above.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ import torch
 from . import _build, qmm_tile
 
 GROUP = 64
-# M <= M0 rows run the GEMV, more the tile: the largest M at which the GEMV
-# is faster summed over the text projection's fc1 and fc2, the only calls
-# with 1 < M <= 8 on a pipeline path (M0's sweep in chip_smoke.py's kernels
-# phase, PERF.md)
-M0 = 3
+# M <= M0 rows run the GEMV (csrc/qmm_gemv.cuh), more the tile: the
+# largest M at which the GEMV, timed cold and summed over the serving
+# step's shapes (qkv, o, gate/up, down, codec head, cp lm head) and the text
+# projection's (fc1, fc2), is faster than the tile there and at every
+# smaller M of the sweep (M = 1, 2, 3, 4, 8, 16: chip_smoke.py's m0_sweep,
+# which logs its M0 beside this one; PERF.md). At 16 the GEMV still wins
+# (its 8-row blocks read the weights twice); the sweep stops there.
+M0 = 16
 launches = 0  # kernel launches since the last reset
 
 

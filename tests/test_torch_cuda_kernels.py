@@ -45,12 +45,14 @@ def rel_rms(got, ref):
                  / (ref.double() ** 2).mean().sqrt())
 
 
-@pytest.mark.parametrize("m", [1, 2, 37, 130])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 37, 130])
 def test_int8_matmul_kernel(dev, m):
-    """The GEMV (M <= qm.M0) and the tensor-core tile (37 and 130
-    rows: one and two row tiles, ragged O = 200 columns, split K) in fp32
-    (rel RMS 1e-4) and bf16 (2e-2); two calls give the same bits (the
-    split-K sum is fixed-order); a misaligned x is copied by the dispatch."""
+    """The GEMV (M <= qm.M0: a block's 1, 2, 4 or 8 rows of x, and 16 rows
+    over two row blocks where M0 reaches it) and the tensor-core tile (37
+    and 130 rows: one and two row tiles, split K), at ragged O = 200
+    columns, in fp32 (rel RMS 1e-4) and bf16 (2e-2); two calls give the
+    same bits on either side of M0 (fixed-order sums, no atomics); a
+    misaligned x is copied by the dispatch."""
     g = torch.Generator(device=dev).manual_seed(m)
     o, k = 200, 320
     w8 = torch.randint(0, 256, (o, k), generator=g, device=dev, dtype=torch.uint8)

@@ -34,11 +34,13 @@ def rel_rms(got, ref):
                  / (ref.double() ** 2).mean().sqrt())
 
 
-@pytest.mark.parametrize("m", [1, 2, 37, 130])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 16, 37, 130])
 def test_packed_matmul_kernel(dev, m):
-    """The GEMV (M <= pm.M0) and the tensor-core tile (37 and 130
-    rows, ragged O = 200 columns, split K, K = 352 at group 32) at every
-    width; two calls give the same bits (the split-K sum is fixed-order)."""
+    """The GEMV (M <= pm.M0: a block's 1, 2, 4 or 8 rows of x, and 16 rows
+    over two row blocks where M0 reaches it) and the tensor-core tile (37
+    and 130 rows, split K), at ragged O = 200 columns, K = 352 at group 32,
+    at every width; two calls give the same bits on either side of M0
+    (fixed-order sums, no atomics)."""
     g = torch.Generator(device=dev).manual_seed(m)
     o = 200
     for bits, gs in CASES:

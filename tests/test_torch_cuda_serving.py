@@ -5,8 +5,8 @@ on the card, at the tiny widths of qwen3_tts_tpu_torch/testing.py in fp32
     python -m pytest tests/test_torch_cuda_serving.py -q --noconftest
 
 The graph's replays against the same steps run eagerly from a copy of the
-state, in the K3 configuration (every linear on K3; B = 4 puts them past
-M0 on the tile) and the megakernel one (the `w8r` product): the same frames
+state, in the K3 configuration (every linear on K3, at B = 4 its GEMV) and
+the megakernel one (the `w8r` product): the same frames
 at temperature 0 and 0.9, the same integer state, float state within 1e-5
 (the same kernels on the same inputs); an admission into a running graph;
 and the graph's nodes counted by libcuda's cuGraphGetNodes."""
