@@ -190,13 +190,35 @@ non-zero):
                 checkpoint saved, restored bit for bit and resumed; no
                 kernel of the port launched (dense torch matmuls and
                 autograd, as the JAX step is dense jnp)
+  1.7b        - the 1.7B model (Qwen3TTSConfig.standard_1_7b(): talker
+                hidden 2048, intermediate 6144, the 1024-wide code predictor
+                through small_to_mtp_projection), random weights from seed
+                0 in bf16, full depth, default configuration:
+                generate() and generate_stream() of 320 frames each (past
+                the window's trims and the ring's wrap), the audio checked,
+                K1 and K2 launched once a frame, K3 (text projection) and
+                K4-K6 and the blocks' upsample, K7 and K2g's kernel not; K3
+                at the text projection's shapes; K1 on the pipeline's tree
+                (C = 260, window starts 99 and 297, fp32 and bf16) and K2
+                with the projection (T = 0.85 with and without the penalty,
+                and T = 0) against their plain versions at TOL_W8A8, their
+                plans and bit-identical repeats (the one-kernel check is
+                the megakernels phase's); the frame loop teacher-forced
+                over frames 186-255 (trims and the wrap); a profile of 8
+                frames; K3 and K7 (4 and 6 bits) at every 1.7B linear and
+                the text projection at M = 1, 3, 9, 16 and 114, fp32 and
+                bf16, warm and cold, K7's 4-bit calls beside
+                torch._weight_int4pack_mm; M0's sweep over the 1.7B shapes
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
 others, "launches_serving" on the serving runs, "launches_service" on
 the service's traffic, "launches_verify" on the verify phase and
 "launches_train" on the train phase, 0 for
-every kernel, and "launches_tp" on the tp phase's generate() on rank 0:
-the wrappers' calls, eager and captured, not the graph replays; K7's
+every kernel, and "launches_tp" on the tp phase's generate() on rank 0, "launches_1_7b" on the
+1.7b phase's generate() and generate_stream():
+the wrappers' calls, eager and captured, not the graph replays; the rows held
+at the 1.7B shapes (K1, K2, K3, K7) also "at_1_7b", their error, times,
+bounds and library time there, and max_abs_err over both models; K7's
 row also has its library call's time, torch._weight_int4pack_mm at its
 4-bit shapes, beside its own there, warm and cold; K3's and K7's rows also
 their GEMV's M = 1 main-path calls summed warm, cold and as a bound, the
@@ -401,9 +423,11 @@ def nbytes(*tensors) -> int:
 
 class Record:
     """Worst error and summed times / bounds per kernel over its comparisons
-    (times and bounds over the bf16 ones, the pipeline's working type)."""
+    (times and bounds over the bf16 ones, the pipeline's working type);
+    `tag` opens its log lines."""
 
-    def __init__(self):
+    def __init__(self, tag: str = "kernels"):
+        self.tag = tag
         self.rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "t_bytes": 0.0, "t_ops": 0.0, "library_ms": None} for k in KERNELS}
 
@@ -414,7 +438,7 @@ class Record:
         ok = err == err and err <= tol  # NaN fails
         (ms, how), (pms, phow) = timing, plain_timing
         b_ms, b_by = bound(nb, ops)
-        log(f"[kernels] {name} {label} {dtype}: rel_rms={err:.3e} (tol {tol:g}) "
+        log(f"[{self.tag}] {name} {label} {dtype}: rel_rms={err:.3e} (tol {tol:g}) "
             f"max_abs={abs_err:.3e}{extra} kernel {ms:.4f} ms ({how}) plain {pms:.4f} ms "
             f"({phow}) bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -748,7 +772,7 @@ def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
                 f"{'no slower' if k7_cold <= lib_cold else 'SLOWER'}")
         row["library_cold_ms"] = row.get("library_cold_ms", 0.0) + lib_cold
         row["cold_ms_at_library_shapes"] = row.get("cold_ms_at_library_shapes", 0.0) + k7_cold
-    log(f"[kernels] library, packed_matmul 4-bit M={m} K={k} O={got.shape[1]}: "
+    log(f"[{rec.tag}] library, packed_matmul 4-bit M={m} K={k} O={got.shape[1]}: "
         f"torch._weight_int4pack_mm {ms:.4f} ms (graph) against K7 {k7_ms:.4f} ms: K7 "
         f"{'no slower' if k7_ms <= ms else 'SLOWER'}{cold}; rel_rms against K7 {err:.3e} "
         f"(tol {TOL['bfloat16']:g}) {'ok' if ok else 'FAIL'}")
@@ -771,7 +795,7 @@ def cold_row(rec: Record, name: str, key: tuple, gemv: bool, warm: float, cold: 
     b_ms, b_by = bound(nb, ops)
     row = rec.rows[name]
     kern, k, o, m = key
-    log(f"[kernels] {name} cold, {kern} M={m} K={k} O={o} bf16 ({'GEMV' if gemv else 'tile'}): "
+    log(f"[{rec.tag}] {name} cold, {kern} M={m} K={k} O={o} bf16 ({'GEMV' if gemv else 'tile'}): "
         f"cold {cold:.4f} ms ({copies} copies of the weights in one graph), warm {warm:.4f} ms "
         f"(graph of one call); bound {b_ms:.4f} ms ({b_by}): {cold / b_ms:.2f}x cold, "
         f"{warm / b_ms:.2f}x warm; floor {row['floor_cold_ms']:.4f} ms, "
@@ -907,8 +931,8 @@ M0_SHAPES = (("qkv", 1024, 4096), ("o", 2048, 1024), ("gate/up", 1024, 6144),
 M0_ROWS = (1, 2, 3, 4, 8, 16)
 
 
-def m0_sweep(gen, dev) -> dict:
-    """M0's sweep: the GEMV against the tile at M0_SHAPES for M = 1, 2, 3,
+def m0_sweep(gen, dev, shapes=M0_SHAPES, tag: str = "kernels") -> dict:
+    """M0's sweep: the GEMV against the tile at `shapes` for M = 1, 2, 3,
     4, 8 and 16, bf16 x, K3 and K7 at 4 bits, both cold (cold_ms; the
     GEMV's times are the kernels phase's where it took them, COLD). The M0
     it gives a kernel is the largest M at which the GEMV, summed over the
@@ -922,7 +946,7 @@ def m0_sweep(gen, dev) -> dict:
     keep = qm.M0, pm.M0
     total: dict = {}
     try:
-        for name, k, o in M0_SHAPES:
+        for name, k, o in shapes:
             weights = {"K3": qmm_weights(gen, dev, None, k, o),
                        "K7 4-bit": qmm_weights(gen, dev, 4, k, o)}
             copies = {kern: cold_copies(*w) for kern, w in weights.items()}
@@ -942,7 +966,7 @@ def m0_sweep(gen, dev) -> dict:
                     COLD["tile " + kern, k, o, m] = t[kern, "tile"]
                     for path in ("gemv", "tile"):
                         total[kern, path, m] = total.get((kern, path, m), 0.0) + t[kern, path]
-                log(f"[kernels] M0 sweep, {name} M={m} (cold): K3 GEMV {t['K3', 'gemv']:.4f} ms, "
+                log(f"[{tag}] M0 sweep, {name} M={m} (cold): K3 GEMV {t['K3', 'gemv']:.4f} ms, "
                     f"tile {t['K3', 'tile']:.4f}; K7 4-bit GEMV {t['K7 4-bit', 'gemv']:.4f}, "
                     f"tile {t['K7 4-bit', 'tile']:.4f}")
             del copies, weights
@@ -957,10 +981,10 @@ def m0_sweep(gen, dev) -> dict:
                 break
             m0 = m
         swept[kern] = m0
-        log(f"[kernels] M0 sweep, {kern} summed over {len(M0_SHAPES)} shapes (cold): "
+        log(f"[{tag}] M0 sweep, {kern} summed over {len(shapes)} shapes (cold): "
             + ", ".join(f"M={m} GEMV {total[kern, 'gemv', m]:.4f} / tile "
                         f"{total[kern, 'tile', m]:.4f} ms" for m in M0_ROWS))
-    log(f"[kernels] M0 sweep: the GEMV is faster summed over the shapes up to M = "
+    log(f"[{tag}] M0 sweep: the GEMV is faster summed over the shapes up to M = "
         f"{swept['K3']} (K3), {swept['K7 4-bit']} (K7 4-bit); the wrappers' M0: K3 {qm.M0}, "
         f"K7 {pm.M0}")
     return swept
@@ -1190,12 +1214,14 @@ def chisq_pvalue(counts, probs) -> float:
     return float(stats.chisquare(counts, exp).pvalue)
 
 
-def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool) -> None:
+def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool,
+                tag: str = "megakernels"):
     """K1 against its plain version at C = 260, position 300, window start
     `ws`: h, logits and the new K/V rows within TOL_W8A8; every other ring
     slot untouched and pos[slot] written; in fp32 on the main case, the K/V
     rows of layers 0 and 1 within ROW_TOL (a fault in layer 0's attention,
-    such as a lost current-token column or a wrong window, shows there)."""
+    such as a lost current-token column or a wrong window, shows there).
+    Returns (ms, weight bytes, the call's inputs)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import talker as talker_mod
@@ -1236,7 +1262,7 @@ def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool) -> No
     rows_ok = not (main and dt == torch.float32) or first >= 2
     err = max(errs) if (untouched and pos_ok and finite and rows_ok) else float("nan")
     flip = int(torch.argmax(lk)) != int(torch.argmax(lp))
-    log(f"[megakernels] talker_step {dtype} window={ws}: K/V row rel RMS per layer, kernel vs "
+    log(f"[{tag}] talker_step {dtype} window={ws}: K/V row rel RMS per layer, kernel vs "
         "plain: " + " ".join(f"{e:.1e}" for e in per_layer))
     esize = torch.finfo(dt).bits // 8
     w_names = [f"{p}_{s}" for p in ("qkv", "o", "gu", "dn", "ch") for s in "qsm"]
@@ -1259,6 +1285,93 @@ def talker_case(rec: Record, tkp: dict, cfg, gen, dt, ws: int, main: bool) -> No
                   f"{'ok' if untouched and pos_ok else 'WRONG'})",
             timed=main)
     return timing[0], w_bytes, (embed, cache, pos_t, ws_t, cos, sin)
+
+
+def cp_bytes(ckp: dict) -> tuple[int, int]:
+    """K2's layer-set bytes (int8 weights, scales, norms) and lm-head bytes."""
+    lay_names = [f"{p}_{s}" for p in ("qkv", "o", "gu", "dn") for s in "qsm"]
+    lay = nbytes(*(ckp[n] for n in lay_names),
+                 *(ckp[n] for n in ("in_ln", "post_ln", "q_ln", "k_ln", "fin_ln")))
+    return lay, nbytes(ckp["head_q"], ckp["head_s"], ckp["head_m"])
+
+
+def cp_inputs(cfg, gen, dt):
+    """K2's inputs in dtype dt: the talker's hidden state and code 0's
+    embedding [1, 1, talker hidden], and a seen set [ng, V] (30% marked)."""
+    import torch
+
+    cc, dev = cfg.code_predictor_config, gen.device
+    hidden = torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev).to(dt)
+    code0 = (torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev) * 0.5).to(dt)
+    seen = torch.rand(cc.num_code_groups - 1, cc.vocab_size, generator=gen, device=dev) < 0.3
+    return hidden, code0, seen
+
+
+def cp_case(rec: Record, ckp: dict, cfg, inputs, seed, temp: float, track: bool,
+            timed: bool | None = None):
+    """K2 against its plain version on one frame at temperature `temp`,
+    with (`track`) or without the repetition penalty: the plain version
+    replays the kernel's codes; each of its own picks (its logits, the
+    penalty and the same Gumbel noise) must be the kernel's except at a
+    near tie; the embedding sum and the seen set equal; the logits within
+    TOL_W8A8. Returns ((ms, method), inputs). `timed` (default: `track`)
+    puts the time in the kernel's row."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import cp_megakernel as cpk
+    from qwen3_tts_tpu_torch.ops.cuda import gumbel_sampler as gs
+
+    cc, dev = cfg.code_predictor_config, seed.device
+    ng, v, chc = cc.num_code_groups - 1, cc.vocab_size, cc.hidden_size
+    hidden, code0, seen = inputs
+    dtype = str(hidden.dtype).split(".")[-1]
+    th = ckp["embr_q"].shape[-1]
+    lay_bytes, head_bytes = cp_bytes(ckp)
+    cp_ops = (2 * (ng + 1) * sum(ckp[f"{p}_q"].numel() for p in ("qkv", "o", "gu", "dn"))
+              + 2 * ckp["head_q"].numel())
+    sk = seen.clone() if track else None
+    lk = torch.empty(ng, v, device=dev)
+    codes, ek, sk = cpk.predict_frame_kernel(ckp, hidden, code0, seed, temp, sk, cc, 1.05,
+                                             None, lk)
+    sp = seen.clone() if track else None
+    lp = torch.empty(ng, v, device=dev)
+    _, ep, sp = cpk.predict_frame_plain(ckp, hidden, code0, seed, temp, sp, cc, 1.05, codes, lp)
+    torch.cuda.synchronize()
+    noise = temp * gs.gumbel_noise(seed, ng, v) if temp > 0 else None
+    agree, ties, bad = 0, 0, 0
+    for k in range(ng):
+        score = lp[k] / torch.where(seen[k], 1.05, 1.0) if track else lp[k]
+        if noise is not None:
+            score = score + noise[k]
+        pick, want = int(torch.argmax(score)), int(codes[k])
+        if pick == want:
+            agree += 1
+        elif float(score[pick] - score[want]) <= NEAR_TIE * float(score.abs().max()):
+            ties += 1
+        else:
+            bad += 1
+    same = torch.equal(ek, ep) and (not track or torch.equal(sk, sp))
+    err = rel_rms(lk, lp)
+    if bad or not same or not bool(torch.isfinite(lk).all()):
+        err = float("nan")
+    esize = hidden.element_size()
+    nb = (lay_bytes + head_bytes + nbytes(ckp["cos"], ckp["sin"]) + 2 * chc * 4
+          + (ng - 1) * (chc + 8) + ng * (th + 8) + 2 * th * esize + lk.numel() * 4 + ng * 8
+          + (2 * ng * v if track else 0))
+    sk2 = seen.clone() if track else None
+    sp2 = seen.clone() if track else None
+    timing = time_ms(lambda: cpk.predict_frame_kernel(ckp, hidden, code0, seed, temp, sk2, cc),
+                     10)
+    rec.add("cp_frame", f"penalty={'on' if track else 'off'} T={temp:g} th={th}", dtype, err,
+            float((lk - lp).abs().max()), TOL_W8A8[dtype], timing,
+            time_ms(lambda: cpk.predict_frame_plain(ckp, hidden, code0, seed, temp, sp2, cc),
+                    2),
+            nb, {"int8": cp_ops},
+            extra=f" (codes: {agree}/{ng} picked alike, {ties} near ties; embedding sum "
+                  f"[{th}] {'equal' if torch.equal(ek, ep) else 'DIFFERS'})",
+            timed=track if timed is None else timed)
+    return timing, inputs
+
 
 
 def phase_megakernels(rec: Record, card: str, talker_dense: dict, cp_dense: dict) -> None:
@@ -1293,64 +1406,15 @@ def phase_megakernels(rec: Record, card: str, talker_dense: dict, cp_dense: dict
     # K2: one frame, temperature 0.85, with and without the penalty; the
     # plain version replays the kernel's codes and its own picks must match
     # except at near ties
-    cc = cfg.code_predictor_config
-    ng, v, chc = cc.num_code_groups - 1, cc.vocab_size, cc.hidden_size
-    lay_names = [f"{p}_{s}" for p in ("qkv", "o", "gu", "dn") for s in "qsm"]
-    lay_bytes = nbytes(*(ckp[n] for n in lay_names),
-                       *(ckp[n] for n in ("in_ln", "post_ln", "q_ln", "k_ln", "fin_ln")))
-    head_bytes = nbytes(ckp["head_q"], ckp["head_s"], ckp["head_m"])
-    cp_ops = (2 * (ng + 1) * sum(ckp[f"{p}_q"].numel() for p in ("qkv", "o", "gu", "dn"))
-              + 2 * ckp["head_q"].numel())
     seed = torch.tensor([20240607], device=dev)
     k2 = {}
     for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        hidden = torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev).to(dt)
-        code0 = (torch.randn(1, 1, cfg.hidden_size, generator=gen, device=dev) * 0.5).to(dt)
+        inputs = cp_inputs(cfg, gen, getattr(torch, dtype))
         for track in (True, False):
-            seen = (torch.rand(ng, v, generator=gen, device=dev) < 0.3) if track else None
-            sk = seen.clone() if track else None
-            lk = torch.empty(ng, v, device=dev)
-            codes, ek, sk = cpk.predict_frame_kernel(ckp, hidden, code0, seed, 0.85, sk,
-                                                     cc, 1.05, None, lk)
-            sp = seen.clone() if track else None
-            lp = torch.empty(ng, v, device=dev)
-            _, ep, sp = cpk.predict_frame_plain(ckp, hidden, code0, seed, 0.85, sp, cc, 1.05,
-                                                codes, lp)
-            torch.cuda.synchronize()
-            noise = 0.85 * gs.gumbel_noise(seed, ng, v)
-            agree, ties, bad = 0, 0, 0
-            for k in range(ng):
-                score = lp[k] / torch.where(seen[k], 1.05, 1.0) if track else lp[k]
-                score = score + noise[k]
-                pick, want = int(torch.argmax(score)), int(codes[k])
-                if pick == want:
-                    agree += 1
-                elif float(score[pick] - score[want]) <= NEAR_TIE * float(score.abs().max()):
-                    ties += 1
-                else:
-                    bad += 1
-            same = torch.equal(ek, ep) and (not track or torch.equal(sk, sp))
-            err = rel_rms(lk, lp)
-            if bad or not same or not bool(torch.isfinite(lk).all()):
-                err = float("nan")
-            nb = (lay_bytes + head_bytes + nbytes(ckp["cos"], ckp["sin"]) + 2 * chc * 4
-                  + (ng - 1) * (chc + 8) + lk.numel() * 4 + ng * 8
-                  + (2 * ng * v if track else 0))
-            sk2 = seen.clone() if track else None
-            sp2 = seen.clone() if track else None
-            k2[dtype, track] = (time_ms(lambda: cpk.predict_frame_kernel(
-                ckp, hidden, code0, seed, 0.85, sk2, cc), 10), (hidden, code0, seen))
-            rec.add("cp_frame", f"penalty={'on' if track else 'off'} T=0.85", dtype, err,
-                    float((lk - lp).abs().max()), TOL_W8A8[dtype], k2[dtype, track][0],
-                    time_ms(lambda: cpk.predict_frame_plain(ckp, hidden, code0, seed, 0.85,
-                                                            sp2, cc), 2),
-                    nb, {"int8": cp_ops},
-                    extra=f" (codes: {agree}/{ng} picked alike, {ties} near ties)",
-                    timed=track)
-
-    persistent_checks(card, cfg, tkp, ckp, seed, k1[("bfloat16", 99)], k2[("bfloat16", True)],
-                      lay_bytes, head_bytes)
+            k2[dtype, track] = cp_case(rec, ckp, cfg, inputs, seed, 0.85, track)
+    cc = cfg.code_predictor_config
+    v = cc.vocab_size
+    persistent_checks(card, cfg, tkp, ckp, seed, k1[("bfloat16", 99)], k2[("bfloat16", True)])
 
     # K2's draws: a frame at temperature 0, where the pick skips Philox and
     # both logs, against one at 0.85, in turns (bf16, penalty on)
@@ -1404,10 +1468,10 @@ def device_kernels(prof) -> list[str]:
 
 
 def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_main,
-                      lay_bytes: int, head_bytes: int) -> None:
-    """K1 and K2 as persistent cooperative launches at 0.6B, bf16 (the main
-    cases): each launch's grid and dynamic shared memory; one device kernel
-    per call (torch.profiler); two runs bit for bit alike; the weight bytes
+                      tag: str = "megakernels", one_kernel: bool = True) -> None:
+    """K1 and K2 as persistent cooperative launches at cfg's widths, bf16
+    (the main cases): each launch's grid and dynamic shared memory; one device kernel
+    per call (torch.profiler; where `one_kernel`); two runs bit for bit alike; the weight bytes
     per second each achieves; and the cost of one grid barrier, timed as a
     launch of n barriers (csrc/grid_barrier.cu), times the barriers a step
     and a frame make: the design's floor."""
@@ -1423,7 +1487,7 @@ def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_ma
     (k2_ms, _), (hidden, code0, seen) = k2_main
     tplan, cplan = ps.talker_plan(cfg, cache["pos"].shape[0], dev), ps.cp_plan(cc, dev)
     for name, pl in (("talker_step (K1)", tplan), ("cp_frame (K2)", cplan)):
-        log(f"[megakernels] {name}: one cooperative launch of {pl.grid} blocks x {ps.PK_NT} "
+        log(f"[{tag}] {name}: one cooperative launch of {pl.grid} blocks x {ps.PK_NT} "
             f"threads, {pl.smem} bytes of dynamic shared memory ({pl.buf} per weight buffer), "
             f"attention in {pl.nch} chunk(s) of {pl.S} slots per kv head")
 
@@ -1446,12 +1510,15 @@ def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_ma
         differ = [i for i, (x, y) in enumerate(zip(a, b)) if not torch.equal(x, y)]
         call()
         torch.cuda.synchronize()
-        kernels, windows = profiled_kernels(call, 4)
-        log(f"[megakernels] {name}: two runs bit-identical: {not differ}; 4 calls ran "
-            f"{len(kernels)} device kernels ({sorted(set(kernels))}; records per window "
-            f"{windows}) ({card})")
         if differ:
             raise SystemExit(f"{name}: two runs on the same inputs differ in outputs {differ}")
+        if not one_kernel:
+            log(f"[{tag}] {name}: two runs bit-identical: True ({card})")
+            continue
+        kernels, windows = profiled_kernels(call, 4)
+        log(f"[{tag}] {name}: two runs bit-identical: True; 4 calls ran "
+            f"{len(kernels)} device kernels ({sorted(set(kernels))}; records per window "
+            f"{windows}) ({card})")
         if len(kernels) != 4 or len(set(kernels)) != 1:
             raise SystemExit(f"{name} is not one device kernel per call: {kernels} "
                              f"(records per window {windows})")
@@ -1466,13 +1533,14 @@ def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_ma
     t0 = min(_events_ms(lambda: ps.grid_barriers(0)) for _ in range(5))
     tn = min(_events_ms(lambda: ps.grid_barriers(n)) for _ in range(5))
     us = (tn - t0) / n * 1e3
-    log(f"[megakernels] grid barrier: {us:.3f} us each ({n} in one launch of "
+    log(f"[{tag}] grid barrier: {us:.3f} us each ({n} in one launch of "
         f"{tplan.grid} blocks, less an empty launch); {per_step} per talker step = "
         f"{per_step * us / 1e3:.4f} ms, {per_frame} per code-predictor frame = "
         f"{per_frame * us / 1e3:.4f} ms ({card})")
+    lay_bytes, head_bytes = cp_bytes(ckp)
     once = lay_bytes + head_bytes
     streamed = n_pass * lay_bytes + head_bytes
-    log(f"[megakernels] talker_step bf16: {k1_ms:.4f} ms for {k1_bytes} weight bytes = "
+    log(f"[{tag}] talker_step bf16: {k1_ms:.4f} ms for {k1_bytes} weight bytes = "
         f"{k1_bytes / k1_ms / 1e9:.3f} TB/s of the card's 3.35; cp_frame bf16: {k2_ms:.4f} ms: "
         f"{once} weight bytes read once = {once / k2_ms / 1e9:.3f} TB/s, {streamed} streamed "
         f"over the {n_pass} passes = {streamed / k2_ms / 1e9:.3f} TB/s ({card})")
@@ -1644,12 +1712,25 @@ def no_sync_chunk(pl, label: str) -> None:
         "no host sync inside the chunk")
 
 
-def teacher_forced(pl, card: str, label: str = "pipeline") -> None:
+def _clone_state(state: dict) -> dict:
+    """A copy of a decode state that steps on its own (the masks are read
+    only and stay shared)."""
+    return {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.clone() if hasattr(v, "clone") else v)
+            for k, v in state.items()}
+
+
+def teacher_forced(pl, card: str, label: str = "pipeline", frames: int = 96,
+                   start: int = 0) -> dict:
     """K1 + K2 against their plain versions, teacher-forced over the frames
-    generate() makes: both decode the same frames from their own states;
-    the talker logits after each step are compared. The two rings drift
-    apart by the W8A8 rounding steps of every earlier step, so the
-    tolerance is TOL_W8A8's (measured 3.3e-2 at most over the 96 frames)."""
+    generate() makes (up to `frames`): both decode the same frames from
+    their own states; the talker logits after each step are compared. The
+    two rings drift apart by the W8A8 rounding steps of every earlier step,
+    so the tolerance is TOL_W8A8's (measured 3.3e-2 at most over the 96
+    frames at 0.6B). With `start`, the kernels alone decode the first
+    `start` frames and the plain state starts as a copy of theirs, so that
+    the compared frames reach the window's trims and the ring's wrap at the
+    price of the plain stepping over the compared frames only."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
@@ -1657,16 +1738,19 @@ def teacher_forced(pl, card: str, label: str = "pipeline") -> None:
     from qwen3_tts_tpu_torch.ops.cuda import talker_megakernel as tmk
 
     pd = pl._assemble(TEXT, "aiden")
-    frames = torch.from_numpy(gen_mod.generate_codes(
-        pl.params, pl.cp_params, pl.config, pd, temperature=0.85, max_tokens=96, seed=0,
+    codes = torch.from_numpy(gen_mod.generate_codes(
+        pl.params, pl.cp_params, pl.config, pd, temperature=0.85, max_tokens=frames, seed=0,
         chunk_steps=12, track_cp_penalty=True,
     )).long().cuda()
     sk = gen_mod.prefill(pl.params, pd, pl.config)
-    sp = gen_mod.prefill(pl.params, pd, pl.config)
-    errs, flips = [], 0
     kw = dict(temperature=0.0, generator=None, track_cp_penalty=True)
     t0 = time.perf_counter()
-    for f in frames:
+    for f in codes[:start]:
+        gen_mod.decode_step(pl.params, pl.cp_params, sk, pl.config, forced_frame=f, **kw)
+    sp = _clone_state(sk) if start else gen_mod.prefill(pl.params, pd, pl.config)
+    ws0 = int(sk["window_start"])
+    errs, flips = [], 0
+    for f in codes[start:]:
         gen_mod.decode_step(pl.params, pl.cp_params, sk, pl.config, forced_frame=f, **kw)
         talker, frame = tmk.talker_step, cpk.predict_frame
         tmk.talker_step, cpk.predict_frame = tmk.talker_step_plain, cpk.predict_frame_plain
@@ -1677,13 +1761,21 @@ def teacher_forced(pl, card: str, label: str = "pipeline") -> None:
         errs.append(rel_rms(sk["logits"], sp["logits"]))
         flips += int(torch.argmax(sk["logits"]) != torch.argmax(sp["logits"]))
     torch.cuda.synchronize()
-    worst = max(errs)
-    log(f"[{label}] teacher-forced over {len(frames)} generated frames, kernels vs plain "
-        f"versions (bf16 model): talker logits rel RMS max {worst:.3e} mean "
-        f"{float(np.mean(errs)):.3e} (tol {TOL_W8A8['bfloat16']:g}), code-0 argmax flips "
-        f"{flips}/{len(frames)}; {time.perf_counter() - t0:.1f} s ({card})")
-    if not worst <= TOL_W8A8["bfloat16"]:
+    if not errs:
+        raise SystemExit(f"[{label}] teacher forcing compared no frame ({len(codes)} decoded)")
+    out = {"frames": [start, len(codes)], "worst": max(errs), "mean": float(np.mean(errs)),
+           "flips": flips, "window_start": [ws0, int(sk["window_start"])],
+           "total_len": int(sk["total_len"]), "capacity": int(sk["cache"]["pos"].shape[0]),
+           "s": time.perf_counter() - t0}
+    log(f"[{label}] teacher-forced over generated frames {start}-{len(codes) - 1}, kernels "
+        f"vs plain versions (bf16 model): talker logits rel RMS max {out['worst']:.3e} mean "
+        f"{out['mean']:.3e} (tol {TOL_W8A8['bfloat16']:g}), code-0 argmax flips "
+        f"{flips}/{len(errs)}; window start {ws0} -> {out['window_start'][1]}, "
+        f"{out['total_len']} positions in a ring of {out['capacity']} slots; {out['s']:.1f} s "
+        f"({card})")
+    if not out["worst"] <= TOL_W8A8["bfloat16"]:
         raise SystemExit("the megakernel decode disagrees with its plain version")
+    return out
 
 
 def mixed_prefill_check(pl, card: str, dtype: str) -> None:
@@ -1775,9 +1867,10 @@ def vocoder_windows(pl, card: str) -> None:
             log(f"[pipeline]   {ms:.3f} ms in {n} launches: {key}")
 
 
-def profile_frames(pl, label: str, card: str, steps: int = 8) -> None:
+def profile_frames(pl, label: str, card: str, steps: int = 8) -> dict:
     """Wall time per frame of a decode chunk against the device time the
-    profiler sees in it, and the kernels that take it."""
+    profiler sees in it, and the kernels that take it; returns them (ms a
+    frame; "kernels": the top eight by device time)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
@@ -1812,6 +1905,8 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> None:
             "(the profiler saw no device activity)")
     for ms, n, key in rows[:8]:
         log(f"[{label}]   {ms:.3f} ms/frame in {n} launches/frame: {key}")
+    return {"wall_ms": wall, "device_ms": dev_ms, "kernels_a_frame": per_frame,
+            "kernels": rows[:8]}
 
 
 def phase_fused_path(card: str) -> dict:
@@ -4071,6 +4166,178 @@ def phase_tp(card: str, d: str) -> tuple[dict, dict]:
     return launches[0], metrics
 
 
+# ---- the 1.7B phase ----
+
+# (name, K, O) of the 1.7B linears that K3 and K7 are held at: the talker's
+# four layer GEMVs and codec head; the text projection's fc1 and fc2 are
+# both 2,048 -> 2,048, o's shape (the code predictor's are 0.6B's)
+LINEARS_1_7B = (("qkv", 2048, 4096), ("o / fc1 / fc2", 2048, 2048),
+                ("gate/up", 2048, 12288), ("down", 6144, 2048), ("codec head", 2048, 3072))
+ROWS_1_7B = (1, 3, 9, 16, 114)  # the GEMV at M <= M0 (16), the tile at 114
+# M0's sweep at 1.7B: the serving step's shapes and the text projection's
+M0_SHAPES_1_7B = (("qkv", 2048, 4096), ("o", 2048, 2048), ("gate/up", 2048, 12288),
+                  ("down", 6144, 2048), ("codec head", 2048, 3072),
+                  ("cp lm head", 1024, 2048), ("fc1", 2048, 2048), ("fc2", 2048, 2048))
+FRAMES_1_7B = 320  # past the 192-slot window's trims and the ring's wrap
+# teacher forcing at 1.7B: the kernels alone to frame 186, then both over
+# frames 186-255, which hold the window's trims at steps 195, 210, 225 and
+# 240 and, with the 9-row prompt, the ring's wrap at step 224
+TF_1_7B = (186, 256)
+
+
+def qmm_1_7b(rec: Record, gen, dev) -> None:
+    """K3 (int8) and K7 (4 and 6 bits), group 64, at the 1.7B linears
+    (LINEARS_1_7B) and M in ROWS_1_7B: fp32 and bf16 x against their plain
+    versions, each call one launch of the path M0 gives it and two calls
+    bit-identical; every bf16 call timed warm (a graph of one call) with
+    its bound, and at M <= 16 cold (cold_ms); K7's 4-bit calls beside
+    torch._weight_int4pack_mm on the same weights (int4pack_library).
+    Every bf16 call counts in the kernel's 1.7B row."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    for bits in (None, 4, 6):  # None: K3
+        name, mod = ("int8_matmul", qm) if bits is None else ("packed_matmul", pm)
+        kern = "K3" if bits is None else f"K7 {bits}-bit"
+        for label, k, o in LINEARS_1_7B:
+            weights = qmm_weights(gen, dev, bits, k, o)
+            copies = cold_copies(*weights)
+
+            def call(x, w=weights, bits=bits):
+                if bits is None:
+                    return qm.int8_matmul_kernel(x, *w)
+                return pm.packed_matmul_kernel(x, *w, bits, 64)
+
+            def plain(x, w=weights, bits=bits):
+                if bits is None:
+                    return qm.int8_matmul_plain(x, *w)
+                return pm.packed_matmul_plain(x, *w, bits, 64)
+
+            for dtype in ("float32", "bfloat16"):
+                for m in ROWS_1_7B:
+                    x = torch.randn(m, k, generator=gen, device=dev).to(getattr(torch, dtype))
+                    tag = f"{kern} {label} M={m} K={k} O={o}"
+                    before = mod.launches
+                    got = call(x)
+                    if mod.launches != before + 1:
+                        raise SystemExit(f"[1.7b] {tag} {dtype}: not one launch")
+                    nb, ops = nbytes(x, *weights, got), {dtype: 2 * m * k * o}
+                    warm = graph_ms(lambda: call(x))
+                    rec.compare(name, tag, dtype, got, plain(x), (warm, "graph"),
+                                time_ms(lambda: plain(x), 10 if m <= 16 else 5), nb, ops)
+                    same_bits(name, f"{tag} {dtype}", got, lambda: call(x))
+                    if dtype != "bfloat16":
+                        continue
+                    cold = None
+                    if m <= 16:
+                        cold = cold_ms([lambda c=c: call(x, c) for c in copies])
+                        cold_row(rec, name, (kern, k, o, m), m <= mod.M0, warm, cold, nb, ops,
+                                 len(copies))
+                    if bits == 4:
+                        int4pack_library(rec, x, *weights, got, warm,
+                                         copies if cold is not None else None, cold)
+            del copies, weights
+            torch.cuda.empty_cache()
+
+
+def phase_1_7b(card: str, floors: tuple[float, float]):
+    """The 1.7B model (Qwen3TTSConfig.standard_1_7b(): talker hidden 2048,
+    intermediate 6144, the 1024-wide code predictor behind
+    small_to_mtp_projection), random weights from seed 0 in bf16, full
+    depth: the pipeline on the default (megakernel) configuration decodes
+    FRAMES_1_7B frames through generate() and generate_stream() (counts set
+    to 0 just before and read just after: K1 and K2 once a frame, K3 in the
+    text projection, K4-K6 and the blocks' upsample in the vocoder; K7 and
+    K2g's kernel idle); K3 at the text projection's shapes; K1 on the
+    pipeline's tree against its plain version (C = 260, window starts 99
+    and 297, fp32 and bf16) and K2 with the projection (temperature 0.85
+    with and without the penalty, and 0); the two launches' plans, two
+    runs bit-identical; the frame loop teacher-forced
+    across the window's trims and the ring's wrap (TF_1_7B); a profile of
+    8 frames; K3 and K7 at the 1.7B linears (qmm_1_7b) and M0's sweep over
+    the 1.7B shapes, logged beside the wrappers' M0. `floors`: the empty
+    launch's cold floor (plain, writing), from the kernels phase.
+    Returns (launch counts, metrics, the 1.7B Record, the swept M0s)."""
+    import torch
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.testing import write_model_dir
+
+    t_phase = time.perf_counter()
+    rec = Record("1.7b")
+    for name in ("int8_matmul", "packed_matmul"):
+        rec.rows[name]["floor_cold_ms"], rec.rows[name]["floor_store_cold_ms"] = floors
+    cfg = qt.Qwen3TTSConfig.standard_1_7b()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vocoder = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_model_dir(d, cfg, qt.TokenizerDecoderConfig(), seed=0)
+        write_s = time.perf_counter() - t0
+        log(f"[1.7b] wrote a random-weight 1.7B model dir (hidden {cfg.hidden_size}, "
+            f"intermediate {cfg.intermediate_size}, code predictor "
+            f"{cfg.code_predictor_config.hidden_size} through small_to_mtp_projection) in "
+            f"{write_s:.1f} s")
+        steps = [0]
+        step = gen_mod.decode_step
+
+        def counting_step(*args, **kwargs):
+            steps[0] += 1
+            return step(*args, **kwargs)
+
+        gen_mod.decode_step = counting_step
+        try:
+            pl, launches, metrics = run_pipeline(
+                card, d, "1.7b", None,
+                need=("talker_step", "cp_frame", "int8_matmul") + vocoder,
+                idle=("gumbel_sample", "packed_matmul"), frames=FRAMES_1_7B)
+        finally:
+            gen_mod.decode_step = step
+        metrics["write_s"] = write_s
+        k1, k2 = launches["talker_step"], launches["cp_frame"]
+        log(f"[1.7b] generate() and generate_stream() decoded {steps[0]} frames (expect "
+            f"{2 * FRAMES_1_7B}): K1 launched {k1} times, K2 {k2} ({card})")
+        if not k1 == k2 == steps[0] == 2 * FRAMES_1_7B:
+            raise SystemExit("[1.7b] K1 and K2 did not run once a frame over the decode")
+        text_projection(pl, card, "1.7b", "K3")
+
+        tkp, ckp = pl.params["kernel"], pl.cp_params["kernel"]
+        k1_cases = {}
+        for dtype in ("float32", "bfloat16"):
+            for ws in (99, 297):
+                k1_cases[dtype, ws] = talker_case(rec, tkp, cfg, gen, getattr(torch, dtype), ws,
+                                                  main=ws == 99, tag="1.7b")
+        seed = torch.tensor([20240607], device=dev)
+        k2_cases = {}
+        for dtype in ("float32", "bfloat16"):
+            inputs = cp_inputs(cfg, gen, getattr(torch, dtype))
+            for temp, track in ((0.85, True), (0.85, False), (0.0, True)):
+                k2_cases[dtype, temp, track] = cp_case(rec, ckp, cfg, inputs, seed, temp, track,
+                                                       timed=(temp, track) == (0.85, True))
+        # the profiler's one-kernel check is the megakernels phase's, on the
+        # same launch code: this late in the script its windows lost every
+        # K1 record (0 of 4 in five windows after the train phase)
+        persistent_checks(card, cfg, tkp, ckp, seed, k1_cases["bfloat16", 99],
+                          k2_cases["bfloat16", 0.85, True], tag="1.7b", one_kernel=False)
+        tf = teacher_forced(pl, card, "1.7b", frames=TF_1_7B[1], start=TF_1_7B[0])
+        if tf["window_start"][1] <= tf["window_start"][0] or tf["total_len"] <= tf["capacity"]:
+            raise SystemExit("[1.7b] the teacher-forced frames reached no window trim or no "
+                             "wrap of the ring")
+        metrics["teacher_forced"] = tf
+        metrics["profile"] = profile_frames(pl, "1.7b", card)
+        del pl, tkp, ckp
+        torch.cuda.empty_cache()
+    qmm_1_7b(rec, gen, dev)
+    swept = m0_sweep(gen, dev, M0_SHAPES_1_7B, tag="1.7b")
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    log(f"[1.7b] phase: {metrics['phase_s']:.1f} s ({card})")
+    return launches, metrics, rec, swept
+
+
 def main() -> int:
     import torch
 
@@ -4192,6 +4459,9 @@ def main() -> int:
     launches["tp"], results["tp"] = phase_tp(card, main_dir.name)
     main_dir.cleanup()
     launches["train"], results["train"] = phase_train(card)
+    floors = (rec.rows["int8_matmul"]["floor_cold_ms"],
+              rec.rows["int8_matmul"]["floor_store_cold_ms"])
+    launches["1_7b"], results["1_7b"], rec17, m0_1_7b = phase_1_7b(card, floors)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
 
@@ -4230,6 +4500,20 @@ def main() -> int:
         row["launches_service"] = launches["service"][name]
         row["launches_train"] = launches["train"][name]  # the training path launches none
         row["launches_tp"] = launches["tp"][name]  # rank 0's, on the tp = 2 generate()
+        row["launches_1_7b"] = launches["1_7b"][name]
+        r17 = rec17.rows[name]
+        if r17["ms"] or r17["max_abs_err"]:  # held at 1.7B's shapes: K1, K2, K3, K7
+            row["max_abs_err"] = max(row["max_abs_err"], r17["max_abs_err"])
+            row["at_1_7b"] = {
+                k: r17[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+                                    "gemv_warm_ms", "gemv_cold_ms", "gemv_bound_ms",
+                                    "library_cold_ms", "cold_ms_at_library_shapes",
+                                    "ms_at_library_shapes") if k in r17}
+            row["at_1_7b"]["bound_by"] = ("bytes" if r17["t_bytes"] >= r17["t_ops"]
+                                          else "operations")
+            if name in ("int8_matmul", "packed_matmul"):
+                row["at_1_7b"]["m0_swept"] = m0_1_7b[
+                    "K3" if name == "int8_matmul" else "K7 4-bit"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
