@@ -140,7 +140,8 @@ def predict_frame_batched(cp_params: dict, code_hidden: torch.Tensor,
                           temps: float | torch.Tensor, config: CodePredictorConfig,
                           forced_codes: torch.Tensor | None = None,
                           seen_cp: torch.Tensor | None = None,
-                          repetition_penalty: float = 1.05):
+                          repetition_penalty: float = 1.05,
+                          logits_out: list | None = None):
     """Codes 1..15 of B streams' frames (the cp positions are shared, so
     cp_forward's batch dim applies directly). code_hidden / code0_embed
     [B, 1, H]; noise [B, 15, V] Gumbel noise of the groups (None: greedy);
@@ -149,6 +150,8 @@ def predict_frame_batched(cp_params: dict, code_hidden: torch.Tensor,
     the streaming paths, leaves off. `forced_codes` [B, 15] feeds given
     codes on (teacher forcing). The heads run in the activations' dtype,
     as predict_frame's, so a stream's logits are its single-stream ones.
+    `logits_out` collects each group's fp32 logits [B, V] (tests compare
+    them step by step, forced or not).
     Returns (codes [B, 15] int64, embed_sum [B, 1, H])."""
     ng = config.num_code_groups - 1
     b = code_hidden.shape[0]
@@ -163,10 +166,13 @@ def predict_frame_batched(cp_params: dict, code_hidden: torch.Tensor,
         return table_row(emb, k, codes, dtype)[:, None, :]
 
     def sample_group(k, h_last):
+        if forced_codes is None or logits_out is not None:
+            lg = table_matmul(heads, k, h_last[:, 0]).float()
+            if logits_out is not None:
+                logits_out.append(lg)
         if forced_codes is not None:
             code = forced_codes[:, k]
         else:
-            lg = table_matmul(heads, k, h_last[:, 0]).float()
             code = sample_token(lg, None, 0.0 if noise is None else temps,
                                 seen_mask=None if seen_cp is None else seen_cp[:, k],
                                 repetition_penalty=repetition_penalty,
