@@ -76,7 +76,7 @@ non-zero):
                 prefill's ms (in every pipeline phase); K3 timed at the
                 text projection's own shapes; a decode chunk with no
                 host sync; K1/K2 against their plain versions teacher-forced
-                over the first TF_FRAMES (48) generated frames; the kernel
+                over the first TF_FRAMES (24) generated frames; the kernel
                 vocoder against the plain one, with fp32 and with bf16
                 kernel weights; the
                 device time of a 26-frame and a 110-frame vocoder window by
@@ -110,19 +110,29 @@ non-zero):
                 first PCM byte per request, serving RTF and frames/s over
                 the burst, warmup seconds
   k3-pipeline - the same with the megakernels off (every linear on K3),
-                12 frames (host-bound: cut from 96 for time); then 16
+                4 frames (host-bound: few, for the script's time); then 16
                 lockstep steps at B = 8 from one graph (K3's
                 wrapper counts the warm-up and the capture, twice a step's
                 launches at M = 8 and 16; the replays' K3 kernels are
                 counted by name in a profile of 5 replays: a step's
                 launches each)
   mixed-pipeline - runtime_quantization_mode="mixed_4_6" with the
-                megakernels off on the same dir, 12 frames: every talker and
-                code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle; a
-                decode chunk with no host sync, a profile of the frame loop,
-                and the prefill logits with K7 against those with its plain
-                version swapped in, in a bf16 model and in its fp32 twin
-                (the same trees widened: what an fp32 load builds)
+                megakernels off on the same dir, 4 frames: every talker and
+                code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle, K7's
+                launches a decoded frame equal to the tree's packed linears
+                (428); a decode chunk with no host sync, a profile of the
+                frame loop (K7's kernels a frame by name: one name a bit
+                width and row tile), and the prefill logits with K7 against
+                those with its plain version swapped in, in a bf16 model and
+                in its fp32 twin (the same trees widened: what an fp32 load
+                builds)
+  mixed-serving - the mixed pipeline batched: 16 lockstep steps at B = 8
+                from one graph with every linear on K7 at M = 8 (K7's
+                wrapper counts the warm-up and the capture, twice a step's
+                428 launches; the replays' K7 kernels counted by name in a
+                profile of 5 replays), the step's times, B = 8 against
+                B = 1 beside the fp32 twin, the graph bit for bit the eager
+                step, generate_many of 8 texts at temperature 0.85
   prequant-pipeline - a 0.6B dir pre-quantized to 4 bits, group 64 (MLX's
                 layout, written by write_prequantized_model_dir), in the
                 default configuration: K1, K2, K7 (text projection),
@@ -165,7 +175,7 @@ non-zero):
                 the dense bf16 configuration (no runtime quantization, K1
                 off): two spawned ranks share the card over gloo at tp = 2
                 (8 / 4 heads and 1,536 MLP columns a rank); generate() of
-                24 greedy frames on every rank (K2 once a frame on each, K4,
+                12 greedy frames on every rank (K2 once a frame on each, K4,
                 K5, K6 and the blocks' upsample on the vocode), teacher-
                 forced against the unsharded run (TOL_TP; the same weights
                 in fp32 at TOL["float32"]), free-running departures only at
@@ -206,13 +216,13 @@ non-zero):
                 and T = 0) against their plain versions at TOL_W8A8, their
                 plans and bit-identical repeats (the one-kernel check is
                 the megakernels phase's); the frame loop teacher-forced
-                over frames 186-255 (trims and the wrap); a profile of 8
+                over frames 186-231 (trims and the wrap); a profile of 8
                 frames; K3 and K7 (4 and 6 bits) at every 1.7B linear and
-                the text projection at M = 1, 3, 9, 16 and 114 (K3 also at
-                8), and K3 at small_to_mtp_projection (2,048 -> 1,024) at M
-                = 8, 16 and 32, fp32 and bf16, warm and cold, K7's 4-bit
-                calls beside torch._weight_int4pack_mm; M0's sweep over the
-                1.7B shapes
+                the text projection at M = 1, 3, 8, 9, 16 and 114, and K3
+                and K7 4-bit at small_to_mtp_projection (2,048 -> 1,024) at M
+                = 1, 2, 8, 16 and 32, fp32 and bf16, warm and cold, K7's
+                4-bit calls beside torch._weight_int4pack_mm; M0's sweep over
+                the 1.7B shapes
   serving-1.7b - the 1.7B model batched, on the 1.7b phase's dir and loaded
                 pipeline (megakernel configuration's weights: the `w8r`
                 product at M = B, small_to_mtp_projection on K3):
@@ -236,6 +246,28 @@ non-zero):
                 beside the 0.6B figure), 16 lockstep steps at B = 8 from one
                 graph (443 K3 kernels a replay by name), the graph bit for
                 bit the eager step, B = 8 against B = 1 as above
+  mixed-1.7b  - the 1.7B dir loaded runtime_quantization_mode="mixed_4_6"
+                with the megakernels off: generate() and generate_stream() of
+                4 frames, K7 443 launches a decoded frame (every talker and
+                code-predictor linear, small_to_mtp_projection at 4 bits: M
+                = 2 once a frame, then 1), K1-K3 idle; a profile of the frame
+                loop; the prefill logits with K7 against its plain version in
+                bf16 and on the fp32 twin; the lockstep step at B = 8 from one
+                graph (443 K7 a step, the projection M = 16 once, then 8,
+                counted by name in 5 replays), B = 8 against B = 1 beside the
+                twin, the graph bit for bit the eager step
+  prequant-1.7b - a copy of the 1.7B dir packed to 4 bits, group 64 (MLX's
+                layout, testing._pack_talker_weights), on the default
+                configuration: generate() and generate_stream() of 96 frames
+                with K1 and K2 built from the packed weights and launched
+                once a frame, K7 in the text projection only, K3 and K2g's
+                kernel idle; K7 timed at the text projection's shapes; K1 /
+                K2 teacher-forced over TF_FRAMES (24); the resident bytes
+                beside the int8 dir's; a profile of the frame loop; the `w8r`
+                lockstep step at B = 8 from one graph with the projection on
+                K7 (15 a step: M = 16 once, then 8, counted by name in 5
+                replays), B = 8 against B = 1 beside the fp32 twin, the graph
+                bit for bit the eager step
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
 others, "launches_serving" on the serving runs, "launches_service" on
@@ -245,10 +277,15 @@ every kernel, and "launches_tp" on the tp phase's generate() on rank 0, "launche
 1.7b phase's generate() and generate_stream(), "launches_serving_1_7b" on the
 serving-1.7b phase's counted runs summed (its serving run, the service's
 traffic, the K3 configuration's pipeline and its lockstep graph's warm-up
-and capture; each in "launches_serving_1_7b_by_run"):
+and capture; each in "launches_serving_1_7b_by_run"), "launches_mixed_serving"
+on the mixed-serving phase's graph warm-up and capture and its
+generate_many, "launches_mixed_1_7b" and "launches_prequant_1_7b" on those
+phases' pipelines and lockstep graphs (each run in "..._by_run"):
 the wrappers' calls, eager and captured, not the graph replays; the rows held
 at the 1.7B shapes (K1, K2, K3, K7) also "at_1_7b", their error, times,
-bounds and library time there, and max_abs_err over both models; K7's
+bounds and library time there, and max_abs_err over both models (K7's
+also "shapes": each bf16 call at small_to_mtp_projection, M = 1-32, and
+at the 1.7B linears at M = 8, warm, cold, bound and library); K7's
 row also has its library call's time, torch._weight_int4pack_mm at its
 4-bit shapes, beside its own there, warm and cold; K3's and K7's rows also
 their GEMV's M = 1 main-path calls summed warm, cold and as a bound, the
@@ -268,6 +305,7 @@ import base64
 import contextlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -774,7 +812,7 @@ def phase_kernels(rec: Record) -> None:
 
 
 def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
-                     k7_cold: float | None = None) -> None:
+                     k7_cold: float | None = None) -> tuple[float, float | None]:
     """The library call for K7's 4-bit product: torch._weight_int4pack_mm
     on the same weights. MLX's w = s q + b is its (q - 8) scale + zero with
     scale = s and zero = b + 8 s, in bf16 [K / 64, O, 2]; the nibbles go
@@ -782,7 +820,8 @@ def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
     against K7's output at TOL["bfloat16"] (scale and zero rounded to bf16
     are another function by ~2^-9 of a weight) and timed as K7 was: by
     graph replay, and where K7 was timed cold (`k7_cold`) cold too, on its
-    own copies of the same weights."""
+    own copies of the same weights. Returns (its warm ms, its cold ms or
+    None)."""
     import torch
 
     m, k = x.shape
@@ -791,7 +830,7 @@ def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
     err = rel_rms(lib.float(), got.float())
     ms = graph_ms(lambda: torch._weight_int4pack_mm(x, packed, 64, sz))
     ok = err <= TOL["bfloat16"]
-    cold = ""
+    cold, lib_cold = "", None
     row = rec.rows["packed_matmul"]
     if k7_cold is not None:
         packs = [int4pack_weights(*c, k) for c in copies]
@@ -810,6 +849,7 @@ def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
         raise SystemExit("torch._weight_int4pack_mm disagrees with K7")
     row["library_ms"] = (row["library_ms"] or 0.0) + ms
     row["ms_at_library_shapes"] = row.get("ms_at_library_shapes", 0.0) + k7_ms
+    return ms, lib_cold
 
 
 # cold ms of the bf16 calls at M <= 16: (kernel, K, O, M) -> ms, kernel "K3"
@@ -1750,15 +1790,15 @@ def _clone_state(state: dict) -> dict:
             for k, v in state.items()}
 
 
-# The 0.6B frame loops are teacher-forced over their first 48 frames, cut
-# from 96 for the script's time (the plain K1 / K2 steps cost ~0.28 s a
-# frame). None of the 96 reached a window trim or the ring's wrap at 0.6B
-# (the 1.7b phase's frames 186-255 do); the W8A8 drift grows with the
-# steps, so the shorter run reads less of it (3.5e-2 at most over 96).
-TF_FRAMES = 48
-# The 0.6B K3 and mixed pipelines' frames: host-bound at ~0.23 s a frame,
-# cut from 96 to 24, then to 12, for the script's time limit
-HOST_BOUND_FRAMES = 12
+# The 0.6B frame loops and the pre-quantized 1.7B one are teacher-forced
+# over their first 24 frames, for the script's time (the plain K1 / K2
+# steps cost ~0.3 s a frame). None of 96 reached a window trim or the
+# ring's wrap at 0.6B (the 1.7b phase's frames 186-231 do); the W8A8 drift
+# grows with the steps, so the shorter run reads less of it (3.5e-2 at
+# most over 96 at 0.6B).
+TF_FRAMES = 24
+# The K3 and mixed pipelines' frames: host-bound at ~0.15-0.26 s a frame
+HOST_BOUND_FRAMES = 4
 
 
 def teacher_forced(pl, card: str, label: str = "pipeline", frames: int = 96,
@@ -1819,10 +1859,10 @@ def teacher_forced(pl, card: str, label: str = "pipeline", frames: int = 96,
     return out
 
 
-def mixed_prefill_check(pl, card: str, dtype: str) -> None:
+def mixed_prefill_check(pl, card: str, dtype: str, label: str = "mixed-pipeline") -> float:
     """Prompt assembly and prefill with K7 against the same with K7's plain
     version swapped into the dispatch: talker logits within TOL[dtype] (the
-    model's dtype)."""
+    model's dtype). Returns the rel RMS."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
@@ -1840,12 +1880,13 @@ def mixed_prefill_check(pl, card: str, dtype: str) -> None:
         pm.packed_matmul_kernel = kernel
     torch.cuda.synchronize()
     err = rel_rms(got, ref)
-    log(f"[mixed-pipeline] prefill logits, K7 vs its plain version in every packed linear "
+    log(f"[{label}] prefill logits, K7 vs its plain version in every packed linear "
         f"({dtype} model): rel RMS {err:.3e} (tol {TOL[dtype]:g}), argmax "
         f"{'agrees' if int(torch.argmax(got)) == int(torch.argmax(ref)) else 'differs'} "
         f"({card})")
     if not err <= TOL[dtype]:
-        raise SystemExit("prefill with K7 disagrees with its plain version")
+        raise SystemExit(f"[{label}] prefill with K7 disagrees with its plain version")
+    return err
 
 
 def vocoder_check(pl) -> None:
@@ -1911,7 +1952,8 @@ def vocoder_windows(pl, card: str) -> None:
 def profile_frames(pl, label: str, card: str, steps: int = 8) -> dict:
     """Wall time per frame of a decode chunk against the device time the
     profiler sees in it, and the kernels that take it; returns them (ms a
-    frame; "kernels": the top eight by device time)."""
+    frame; "kernels": the top eight by device time; "qmm_by_name": K3's
+    and K7's kernels a frame by name)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
@@ -1930,7 +1972,17 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> dict:
         gen_mod.decode_chunk(pl.params, pl.cp_params, state, pl.config, steps=steps, **kw)
         torch.cuda.synchronize()
     dev_ms = device_us(prof) / 1e3 / steps
-    per_frame = len(device_kernels(prof)) / steps
+    names = device_kernels(prof)
+    per_frame = len(names) / steps
+    # K3's and K7's kernels a frame by name: each template instance (bits,
+    # rows of x a block, x's dtype) is a name of its own
+    qmm = {}
+    for name, pat in QMM_NAMES.items():
+        hits = [k for k in names if pat.search(k)]
+        qmm[name] = {k: hits.count(k) / steps for k in sorted(set(hits))}
+        if hits:
+            log(f"[{label}] {name} kernels a frame by name, {len(hits) / steps:g} in all: "
+                + ", ".join(f"{n:g} {k[:60]}" for k, n in qmm[name].items()))
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -1947,7 +1999,7 @@ def profile_frames(pl, label: str, card: str, steps: int = 8) -> dict:
     for ms, n, key in rows[:8]:
         log(f"[{label}]   {ms:.3f} ms/frame in {n} launches/frame: {key}")
     return {"wall_ms": wall, "device_ms": dev_ms, "kernels_a_frame": per_frame,
-            "kernels": rows[:8]}
+            "kernels": rows[:8], "qmm_by_name": qmm}
 
 
 def phase_fused_path(card: str) -> dict:
@@ -2246,28 +2298,38 @@ def _state_diff(a: dict, b: dict) -> tuple[float, bool]:
     return worst, same
 
 
+# the kernel function each of K3's and K7's wrappers launches through
+QMM_FNS = {"int8_matmul": "int8_matmul_kernel", "packed_matmul": "packed_matmul_kernel"}
+
+
 @contextlib.contextmanager
-def k3_rows():
-    """Yields a list that receives the M (rows of x) of each K3 kernel call
-    made inside."""
-    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+def kernel_rows():
+    """Yields {"int8_matmul": [...], "packed_matmul": [...]}, lists that
+    receive (M, the weight's data pointer) of each K3 / K7 kernel call made
+    inside."""
+    calls = {name: [] for name in QMM_FNS}
+    real = {name: getattr(counters()[name][0], fn) for name, fn in QMM_FNS.items()}
 
-    fn, ms = qm.int8_matmul_kernel, []
+    def recording(name):
+        def call(x, w, *args):
+            calls[name].append((x.shape[0], w.data_ptr()))
+            return real[name](x, w, *args)
+        return call
 
-    def recording(x, *args):
-        ms.append(x.shape[0])
-        return fn(x, *args)
-
-    qm.int8_matmul_kernel = recording
+    for name, fn in QMM_FNS.items():
+        setattr(counters()[name][0], fn, recording(name))
     try:
-        yield ms
+        yield calls
     finally:
-        qm.int8_matmul_kernel = fn
+        for name, fn in QMM_FNS.items():
+            setattr(counters()[name][0], fn, real[name])
 
 
-def k3_m_per_step(ms: list) -> dict:
-    """M -> K3 calls a step, from k3_rows over a graph's warm-up and
-    capture (each step's calls made twice)."""
+def m_per_step(calls: list, weight=None) -> dict:
+    """M -> calls a step, from kernel_rows' list over a graph's warm-up and
+    capture (each step's calls made twice); `weight` (a tensor): its calls
+    only."""
+    ms = [m for m, ptr in calls if weight is None or ptr == weight.data_ptr()]
     return {m: ms.count(m) // 2 for m in sorted(set(ms))}
 
 
@@ -2278,15 +2340,14 @@ def _texts(b: int) -> tuple:
 
 def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
     """The lockstep step at each batch width: graph capture s and pool
-    bytes; K3's launches the capture recorded and the M of each
-    (k3_per_step, k3_m: M -> launches a step); wall ms a step by graph
-    replay (20 replays ended by a sync) and by the eager step (3 steps);
-    device ms a step of each (profiler: 2 replays, 1 eager step); device
-    kernels a step."""
+    bytes; K3's and K7's launches the capture recorded and the M of each
+    (k3_per_step, k3_m, k7_per_step, k7_m: M -> launches a step); wall ms a
+    step by graph replay (20 replays ended by a sync) and by the eager step
+    (1 step); device ms a step of each (profiler: 1 replay, 1 eager step);
+    device kernels a step."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
-    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
     out = {}
     statics = _statics(pl, 1)
@@ -2295,7 +2356,7 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
         t_width = time.perf_counter()
         state = _serving_state(pl, _texts(b), statics)
         eager = srv._clone(state)
-        with k3_rows() as ms:
+        with kernel_rows() as calls:
             g_state = srv.bind(pl.params, pl.cp_params, state, statics, True)
         g = g_state.graph
         g.set_temps(np.full(b, 0.85, np.float32))
@@ -2331,14 +2392,16 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
 
         check_pool(g, label)
         r = {"capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
-             "k3_per_step": g.step_launches[srv._COUNTED.index(qm)], "k3_m": k3_m_per_step(ms),
-             "graph_ms": wall(g.replay, 20), "eager_ms": wall(eager_step, 3),
+             "graph_ms": wall(g.replay, 20), "eager_ms": wall(eager_step, 1),
              "graph_events_ms": _events_ms(lambda: [g.replay() for _ in range(20)]) / 20}
-        # short windows: the profiler's host work on ~12,000 kernel records
-        # a step is most of this function's time
-        r["graph_device_ms"], r["kernels"] = device(g.replay, 2, top=8 if b == 8 else 0)
+        # one step a window: the profiler's host work on ~12,000 kernel
+        # records a step is most of this function's time
+        r["graph_device_ms"], r["kernels"] = device(g.replay, 1, top=8 if b == 8 else 0)
         r["eager_device_ms"], r["eager_kernels"] = device(eager_step, 1)
         r["frames_per_s"] = b / r["graph_ms"] * 1e3
+        for k, name in (("k3", "int8_matmul"), ("k7", "packed_matmul")):
+            r[f"{k}_per_step"] = g.step_launches[srv._COUNTED.index(counters()[name][0])]
+            r[f"{k}_m"] = m_per_step(calls[name])
 
         def dev_ms(v):
             return f"{v:.3f} ms" if v > 0 else "not measured (the profiler saw no device time)"
@@ -2349,7 +2412,8 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
             f"{r['eager_ms']:.3f} ms wall, device {dev_ms(r['eager_device_ms'])} in "
             f"{r['eager_kernels']:.0f} device kernels; capture {r['capture_s']:.3f} s, graph "
             f"pool {r['pool_bytes']} bytes; {r['frames_per_s']:.1f} frames/s; K3 launches "
-            f"a step {r['k3_per_step']} (M: launches {r['k3_m']}); "
+            f"a step {r['k3_per_step']} (M: launches {r['k3_m']}), K7 {r['k7_per_step']} "
+            f"(M: launches {r['k7_m']}); "
             f"{time.perf_counter() - t_width:.1f} s to measure ({card}, bf16)")
         out[b] = r
         del g_state, state, eager
@@ -2578,18 +2642,20 @@ def held_against_single(pl, card: str, label: str, statics, wide, singles: dict,
             "rounding": max(rounding) if rounding else None, "flips": flips, "ties": ties}
 
 
-def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
-                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 4, 8),
-                  pl32=None, w8r: bool = True):
-    """Batched serving on the megakernel configuration's weights (the
-    megakernels idle: the batched path runs the `w8r` product at M = B):
-    generate_many on 8 texts at each temperature of `temps`,
-    generate_many_stream on each (texts, batch_size) of `streams` (the 8
-    through 8 slots; 6 through 4 admit 2 mid-flight), each output checked;
-    then, outside the counted run, the `w8r` product's check (`w8r`), the
-    step's times at each of `widths`, graph against eager, B = 8 against
-    B = 1 (with `pl32`, an fp32 twin, BATCH_ROUNDING's checks). Returns
-    (launch counts of the counted run, metrics)."""
+SERVING_VOCODER = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
+
+
+def serving_runs(pl, card: str, label: str, temps, streams,
+                 need=("int8_matmul",) + SERVING_VOCODER,
+                 idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
+                       "pre_transformer_fused")):
+    """The counted run of batched serving: generate_many on 8 texts at each
+    temperature of `temps`, generate_many_stream on each (texts,
+    batch_size) of `streams` (the 8 through 8 slots; 6 through 4 admit 2
+    mid-flight), each output checked; the kernels of `need` launched and
+    those of `idle` not (the megakernel configuration's weights: K3 in the
+    text projections, K4-K6 and the blocks' upsample); the graphs' pools.
+    Returns (launch counts of the run, metrics)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
@@ -2663,10 +2729,7 @@ def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
     finally:
         gen_mod.filter_valid_frames = filt
         srv.admit_stream = admit
-    check_counts(label, launches, need=("int8_matmul",) + ("pre_transformer", "upsample_stage",
-                                                          "residual_units", "block_upsample"),
-                 idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
-                       "pre_transformer_fused"))
+    check_counts(label, launches, need=need, idle=idle)
     pool = srv.graphs(pl.params)
     for key, gs in pool.items():
         for g in gs:
@@ -2676,8 +2739,22 @@ def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
                 f"{g.capture_s:.3f} s, pool {g.pool_bytes} bytes")
     log(f"[{label}] graphs captured in the counted run: "
         f"{sum(len(v) for v in pool.values()) - graphs_before}")
+    log(f"[{label}] the counted run: {time.perf_counter() - t_run:.1f} s")
+    return launches, m
+
+
+def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
+                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 4, 8),
+                  pl32=None, w8r: bool = True):
+    """Batched serving on the megakernel configuration's weights (the
+    megakernels idle: the batched path runs the `w8r` product at M = B):
+    serving_runs' counted run of `temps` and `streams`; then, outside it,
+    the `w8r` product's check (`w8r`), the step's times at each of
+    `widths`, graph against eager, B = 8 against B = 1 (with `pl32`, an
+    fp32 twin, BATCH_ROUNDING's checks). Returns (launch counts of the
+    counted run, metrics)."""
+    launches, m = serving_runs(pl, card, label, temps, streams)
     t_part = time.perf_counter()
-    log(f"[{label}] the counted run: {t_part - t_run:.1f} s")
     if w8r:
         m["w8r_product"] = w8r_product(pl, card)
     m["steps"] = step_times(pl, card, label, widths)
@@ -3052,28 +3129,56 @@ def k3_step_launches(cfg) -> int:
             + (cc.num_code_groups - 1) * (4 * cc.num_hidden_layers + 1 + proj))
 
 
-def serving_k3(pl, card: str, label: str = "k3-serving", pl32=None, tf_steps: int = 16):
-    """16 lockstep steps of the K3 configuration at B = 8: every talker and
-    code-predictor linear on K3 at M = 8 (the cp's first pass at 16), from
-    one graph. The counts are set to 0 before the graph's warm-up and
-    capture and read after the steps: K3's wrapper counts the warm-up's and
+# the weight key each of K3 and K7 runs: int8 group rows, packed words
+QMM_KEYS = {"int8_matmul": "w8", "packed_matmul": "wq"}
+
+
+def tree_launches(pl, name: str) -> int:
+    """The launches of K3 or K7 (`name`) in one frame, a lockstep step's or
+    a decoded one's, counted from pl's trees: the talker's layer linears
+    and codec head whose entries hold the kernel's key (QMM_KEYS), and on
+    each of the code predictor's 15 passes its layer linears, the pass's lm
+    head and small_to_mtp_projection that do. Every linear of a tree on
+    one kernel: k3_step_launches."""
+    key, cfg = QMM_KEYS[name], pl.config
+    cc = cfg.code_predictor_config
+    lins = ("qkv_proj", "o_proj", "gateup_proj", "down_proj")
+
+    def count(tree, layers, heads):
+        return (layers * sum(key in tree["layers"].get(n, {}) for n in lins)
+                + sum(key in tree.get(h, {}) for h in heads))
+
+    return (count(pl.params, cfg.num_hidden_layers, ("codec_head",))
+            + (cc.num_code_groups - 1) * count(pl.cp_params, cc.num_hidden_layers,
+                                                ("lm_head", "small_to_mtp_projection")))
+
+
+def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None,
+                 tf_steps: int = 16, projection: dict | None = None,
+                 every_linear: bool = True):
+    """16 lockstep steps at B = 8 from one graph on a tree whose quantized
+    linears run K3 or K7 (`name`): at M = 8 (the code predictor's first
+    pass at 16). The counts are set to 0 before the graph's warm-up and
+    capture and read after the steps: the wrapper counts the warm-up's and
     the capture's calls, twice the launches the capture recorded (the M of
-    each call is recorded), k3_step_launches a step. A replay launches the
-    recorded kernels without the wrapper: K3's device kernels are counted
-    by name in a profile of 5 replays and must be the capture's launches
-    each. Then the step's times at B = 8 and B = 8
-    against B = 1 over the first `tf_steps` steps (`pl32`: batch_vs_single's
-    fp32 twin). Returns (the counts, metrics)."""
+    each call is recorded), tree_launches a step, and with `every_linear`
+    (every talker and code-predictor linear on the kernel: the K3 and mixed
+    configurations) k3_step_launches too. A replay launches the
+    recorded kernels without the wrapper: the kernel's device kernels are
+    counted by name (QMM_NAMES) in a profile of 5 replays and must be the
+    capture's launches each. `projection`: the M -> launches a step that
+    small_to_mtp_projection's calls must show. Then the step's times at B = 8
+    and B = 8 against B = 1 over the first `tf_steps` steps (`pl32`:
+    batch_vs_single's fp32 twin). Returns (the counts, metrics)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
-    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
     statics = _statics(pl, 16)
     state = _serving_state(pl, SERVE_TEXTS, statics)
     torch.cuda.synchronize()
     reset_counts()
-    with k3_rows() as ms:
+    with kernel_rows() as calls:
         state = srv.bind(pl.params, pl.cp_params, state, statics, True)
     g = state.graph
     check_pool(g, label)
@@ -3084,60 +3189,69 @@ def serving_k3(pl, card: str, label: str = "k3-serving", pl32=None, tf_steps: in
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_counts()
-    hist = k3_m_per_step(ms)
-    launched = g.step_launches[srv._COUNTED.index(qm)]
-    expect = k3_step_launches(pl.config)
-    replayed = replayed_k3(g, 5, label)
-    ok = (launches["int8_matmul"] == 2 * launched > 0 and launched == expect
-          and replayed == 5 * launched and bool((frames[..., 0] >= 0).all()) and 8 in hist)
+    hist = m_per_step(calls[name])
+    launched = g.step_launches[srv._COUNTED.index(counters()[name][0])]
+    expect = tree_launches(pl, name)
+    every = k3_step_launches(pl.config) if every_linear else expect
+    replayed = replayed_kernels(g, 5, name, label)
+    proj = None
+    if projection is not None:
+        proj = m_per_step(calls[name], pl.cp_params["small_to_mtp_projection"][QMM_KEYS[name]])
+    ok = (launches[name] == 2 * launched > 0 and launched == expect == every
+          and replayed == 5 * launched and bool((frames[..., 0] >= 0).all()) and 8 in hist
+          and proj == projection)
+    kern = "K3" if name == "int8_matmul" else "K7"
     log(f"[{label}] 16 lockstep steps at B=8 (T=0.85) from one graph: {secs * 1e3:.1f} ms, "
-        f"{secs / 16 * 1e3:.3f} ms a step; K3's wrapper {launches['int8_matmul']} calls in the "
-        f"warm-up and the capture ({launched} a step, expected {expect}; M of a step's "
-        f"launches: {hist}); K3 kernels in a profile of 5 replays {replayed} (expected "
-        f"{5 * launched}); graph captured in {g.capture_s:.3f} s, pool {g.pool_bytes} bytes "
-        f"{'ok' if ok else 'FAIL'} ({card}, bf16)")
+        f"{secs / 16 * 1e3:.3f} ms a step; {kern}'s wrapper {launches[name]} calls in the "
+        f"warm-up and the capture ({launched} a step, expected {expect} from the tree"
+        + (f" and {every}, every linear" if every_linear else "") + f"; M of a "
+        f"step's launches: {hist}"
+        + ("" if projection is None else f"; small_to_mtp_projection's: {proj}, expected "
+           f"{projection}") + f"); {kern} kernels in a profile of 5 replays {replayed} "
+        f"(expected {5 * launched}); graph captured in {g.capture_s:.3f} s, pool "
+        f"{g.pool_bytes} bytes {'ok' if ok else 'FAIL'} ({card}, bf16)")
     if not ok:
-        raise SystemExit(f"[{label}] the K3 configuration's lockstep steps did not run K3 at "
-                         "M = 8 in every replay")
-    check_counts(label, launches, need=("int8_matmul",),
-                 idle=tuple(k for k in KERNELS if k != "int8_matmul"))
-    m = {"per_step": launched, "m": hist, "replayed": replayed,
+        raise SystemExit(f"[{label}] the lockstep steps did not run {kern} at M = 8 in every "
+                         "replay")
+    check_counts(label, launches, need=(name,), idle=tuple(k for k in KERNELS if k != name))
+    m = {"per_step": launched, "m": hist, "replayed": replayed, "projection_m": proj,
          "steps": step_times(pl, card, label, widths=(8,))}
-    # B = 8 runs K3 at M = 8 (the GEMV where M0 >= 8, else the tile), B = 1
-    # at M = 1: the same bound as the `w8r` serving step
+    # B = 8 runs the kernel at M = 8 (the GEMV where M0 >= 8, else the tile),
+    # B = 1 at M = 1: the same bound as the `w8r` serving step
     m["batch_vs_single"] = batch_vs_single(pl, card, frames[:, :tf_steps], label, pl32)
     return launches, m
 
 
-# K3's device kernels: the shared GEMV and tile at 8 bits (K7's 8-bit ones
-# have the same names; K7 is idle in the K3 configuration)
-K3_NAMES = re.compile(r"qt_qmm_gemv_kernel<8,|qt_qmm_tile_kernel<8,")
+# K3's and K7's device kernels: the shared GEMV and tile at 8 bits for K3
+# (K7's 8-bit ones have the same names; no tree here holds both), at 2-6
+# bits for K7
+QMM_NAMES = {"int8_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<8,"),
+             "packed_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<[2346],")}
 
 
-def replayed_k3(g, n: int, label: str = "k3-serving") -> int:
-    """K3's device kernels in a torch.profiler window of n replays of graph
-    g. A window short of n times the capture's launches is taken again, up
-    to five windows, as profiled_kernels does (a profiler window can lose
-    records, more often late in the script); the last window's count is
-    returned."""
+def replayed_kernels(g, n: int, name: str, label: str) -> int:
+    """K3's or K7's (`name`) device kernels in a torch.profiler window of n
+    replays of graph g. A window short of n times the capture's launches is
+    taken again, up to five windows, as profiled_kernels does (a profiler
+    window can lose records, more often late in the script); the last
+    window's count is returned."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
-    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
-    want = n * g.step_launches[srv._COUNTED.index(qm)]
+    want = n * g.step_launches[srv._COUNTED.index(counters()[name][0])]
     for window in range(5):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 g.replay()
             torch.cuda.synchronize()
-        names = [name for name in device_kernels(prof) if K3_NAMES.search(name)]
+        names = [k for k in device_kernels(prof) if QMM_NAMES[name].search(k)]
         got = len(names)
         if got >= want:
-            log(f"[{label}] K3 kernels in {n} replays by name: "
+            log(f"[{label}] {name} kernels in {n} replays by name: "
                 + ", ".join(f"{names.count(k)} {k[:70]}" for k in sorted(set(names))))
             break
-        log(f"[{label}] profile window {window}: {got} K3 kernels of {want}")
+        log(f"[{label}] profile window {window}: {got} {name} kernels of {want}")
     return got
 
 
@@ -3161,7 +3275,7 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS = 2, 256, 5
 # frames, which bf16 drift may legitimately change on random weights)
 FRAME_CHECKSUMS = ("wav",)
 VERIFY_TEXTS = SERVICE_TEXTS[1:5]  # decode_chunk_batched's four streams
-VERIFY_STEPS = 8
+VERIFY_STEPS = 4
 
 
 def _summed(a: dict, b: dict) -> dict:
@@ -3792,7 +3906,7 @@ def phase_train(card: str) -> tuple[dict, dict]:
 # tp: tensor-parallel inference on two ranks that share the card
 # ---------------------------------------------------------------------------
 
-TP_FRAMES = 24  # the single stream's greedy frames (48 before; cut for the script's time)
+TP_FRAMES = 12  # the single stream's greedy frames (few, for the script's time)
 TP_CHUNK = 6  # the serving cycle's chunk: two chunks, park / admit, one more
 TP_SERVICE_TOKENS = 24
 TP_TIMED_FRAMES = 8
@@ -4416,43 +4530,45 @@ def phase_tp(card: str, d: str) -> tuple[dict, dict]:
 # both 2,048 -> 2,048, o's shape (the code predictor's are 0.6B's)
 LINEARS_1_7B = (("qkv", 2048, 4096), ("o / fc1 / fc2", 2048, 2048),
                 ("gate/up", 2048, 12288), ("down", 6144, 2048), ("codec head", 2048, 3072))
-ROWS_1_7B = (1, 3, 9, 16, 114)  # the GEMV at M <= M0 (16), the tile at 114
-# K3 also at M = 8, a lockstep step's at B = 8 in the K3 configuration
-K3_ROWS_1_7B = (1, 3, 8, 9, 16, 114)
-# small_to_mtp_projection (K3 on both configurations' lockstep steps) at a
-# step's M: B at B = 8 and 16, 2B (the first pass's two rows) at B = 8 and 16
-PROJECTION_1_7B = (("projection", 2048, 1024), (8, 16, 32))
+# the GEMV at M <= M0 (16), the tile at 114; M = 8 is a lockstep step's at
+# B = 8 in the K3 and mixed configurations
+ROWS_1_7B = (1, 3, 8, 9, 16, 114)
+# small_to_mtp_projection (K3 or K7 on the lockstep steps, K7 at 4 bits in
+# the mixed and pre-quantized trees) at a frame's or a step's M: 2 then 1
+# in a single stream's frame, 2B then B in a step at B = 8 and 16
+PROJECTION_1_7B = (("projection", 2048, 1024), (1, 2, 8, 16, 32))
 # M0's sweep at 1.7B: the serving step's shapes and the text projection's
 M0_SHAPES_1_7B = (("qkv", 2048, 4096), ("o", 2048, 2048), ("gate/up", 2048, 12288),
                   ("down", 6144, 2048), ("codec head", 2048, 3072),
                   ("cp lm head", 1024, 2048), ("fc1", 2048, 2048), ("fc2", 2048, 2048))
 FRAMES_1_7B = 320  # past the 192-slot window's trims and the ring's wrap
 # teacher forcing at 1.7B: the kernels alone to frame 186, then both over
-# frames 186-255, which hold the window's trims at steps 195, 210, 225 and
-# 240 and, with the 9-row prompt, the ring's wrap at step 224
-TF_1_7B = (186, 256)
+# frames 186-231, which hold the window's trims at steps 195, 210 and 225
+# and, with the 9-row prompt, the ring's wrap at step 224
+TF_1_7B = (186, 232)
 
 
 def qmm_1_7b(rec: Record, gen, dev) -> None:
     """K3 (int8) and K7 (4 and 6 bits), group 64, at the 1.7B linears
-    (LINEARS_1_7B) and M in ROWS_1_7B (K3 in K3_ROWS_1_7B), and K3 at the
-    projection (PROJECTION_1_7B): fp32 and bf16 x against their plain
-    versions, each call one launch of the path M0 gives it and two calls
-    bit-identical; every bf16 call timed warm (a graph of one call) with
-    its bound, and at M <= 16 (the projection at every M) cold (cold_ms);
-    K7's 4-bit calls beside torch._weight_int4pack_mm on the same weights
-    (int4pack_library). Every bf16 call counts in the kernel's 1.7B row."""
+    (LINEARS_1_7B) and M in ROWS_1_7B, and K3 and K7 4-bit at the projection
+    (PROJECTION_1_7B): fp32 and bf16 x against their plain versions, each
+    call one launch of the path M0 gives it and two calls bit-identical;
+    every bf16 call timed warm (a graph of one call) with its bound, and at
+    M <= 16 (the projection at every M) cold (cold_ms); K7's 4-bit calls
+    beside torch._weight_int4pack_mm on the same weights (int4pack_library).
+    Every bf16 call counts in the kernel's 1.7B row; K7's at the projection
+    and at M = 8 are also listed in it ("shapes")."""
     import torch
 
     from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
     from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
 
+    shapes_k7 = rec.rows["packed_matmul"].setdefault("shapes", [])
     for bits in (None, 4, 6):  # None: K3
         name, mod = ("int8_matmul", qm) if bits is None else ("packed_matmul", pm)
         kern = "K3" if bits is None else f"K7 {bits}-bit"
-        shapes = [(shape, K3_ROWS_1_7B if bits is None else ROWS_1_7B)
-                  for shape in LINEARS_1_7B]
-        if bits is None:
+        shapes = [(shape, ROWS_1_7B) for shape in LINEARS_1_7B]
+        if bits != 6:
             shapes.append(PROJECTION_1_7B)
         for (label, k, o), rows in shapes:
             weights = qmm_weights(gen, dev, bits, k, o)
@@ -4483,14 +4599,19 @@ def qmm_1_7b(rec: Record, gen, dev) -> None:
                     same_bits(name, f"{tag} {dtype}", got, lambda: call(x))
                     if dtype != "bfloat16":
                         continue
-                    cold = None
+                    cold = lib = None
                     if m <= 16 or rows is PROJECTION_1_7B[1]:
                         cold = cold_ms([lambda c=c: call(x, c) for c in copies])
                         cold_row(rec, name, (kern, k, o, m), m <= mod.M0, warm, cold, nb, ops,
                                  len(copies))
                     if bits == 4:
-                        int4pack_library(rec, x, *weights, got, warm,
-                                         copies if cold is not None else None, cold)
+                        lib = int4pack_library(rec, x, *weights, got, warm,
+                                               copies if cold is not None else None, cold)
+                    if bits is not None and (m == 8 or rows is PROJECTION_1_7B[1]):
+                        shapes_k7.append({"shape": tag, "warm_ms": warm, "cold_ms": cold,
+                                          "bound_ms": bound(nb, ops)[0],
+                                          "library_ms": lib and lib[0],
+                                          "library_cold_ms": lib and lib[1]})
             del copies, weights
             torch.cuda.empty_cache()
 
@@ -4498,19 +4619,20 @@ def qmm_1_7b(rec: Record, gen, dev) -> None:
 @contextlib.contextmanager
 def decoded_frames(gen_mod):
     """Counts generate.decode_step's calls, one a decoded frame, and K3's
-    launches inside them: yields {"frames", "int8_matmul"}."""
-    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
-
-    out = {"frames": 0, "int8_matmul": 0}
+    and K7's launches inside them: yields {"frames", "int8_matmul",
+    "packed_matmul"}."""
+    out = {"frames": 0, **{name: 0 for name in QMM_FNS}}
     step = gen_mod.decode_step
 
     def counting_step(*args, **kwargs):
-        before = qm.launches
+        before = read_counts()
         try:
             return step(*args, **kwargs)
         finally:
             out["frames"] += 1
-            out["int8_matmul"] += qm.launches - before
+            after = read_counts()
+            for name in QMM_FNS:
+                out[name] += after[name] - before[name]
 
     gen_mod.decode_step = counting_step
     try:
@@ -4632,7 +4754,7 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
                           m: dict) -> None:
     """serving-1.7b's K3 configuration, loaded from the 1.7B dir `d`:
     generate and generate_stream of 8 frames with K3's launches a decoded
-    frame (k3_step_launches; 0.6B's beside it), serving_k3 with the fp32
+    frame (k3_step_launches; 0.6B's beside it), serving_step with the fp32
     twin, its graph bit for bit the eager step. Fills runs / m["k3"] and
     ["k3_serving"]."""
     import torch
@@ -4657,8 +4779,8 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
     m["k3"]["k3_per_frame"] = per_frame
     # teacher-forced over 8 steps, as the `w8r` step (beside the fp32 twin
     # a comparison steps six states)
-    runs["k3_serving"], m["k3_serving"] = serving_k3(pk, card, "k3-serving-1.7b",
-                                                     pl32=fp32_twin(pk), tf_steps=8)
+    runs["k3_serving"], m["k3_serving"] = serving_step(pk, card, "k3-serving-1.7b",
+                                                       pl32=fp32_twin(pk), tf_steps=8)
     graph_vs_eager(pk, card, label="k3-serving-1.7b")
     del pk
     torch.cuda.empty_cache()
@@ -4677,7 +4799,7 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     then the K3 configuration loaded from
     the dir: generate and generate_stream of 8 frames with K3's launches a
     decoded frame (k3_step_launches, beside the 0.6B figure), its lockstep
-    step at B = 8 from one graph (serving_k3, with the fp32 twin), its graph
+    step at B = 8 from one graph (serving_step, with the fp32 twin), its graph
     bit for bit the eager step. Returns (launch counts summed over the
     counted runs, the counts of each, metrics)."""
     import torch
@@ -4700,7 +4822,7 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     statics = _statics(pl, 1)  # step_times' key: its B = 8 graph, free again
     state = srv.bind(pl.params, pl.cp_params, _serving_state(pl, SERVE_TEXTS, statics),
                      statics, True)
-    replayed = replayed_k3(state.graph, 5, label)
+    replayed = replayed_kernels(state.graph, 5, "int8_matmul", label)
     log(f"[{label}] K3 kernels in 5 replays of the B=8 step: {replayed} (expected "
         f"{5 * expect}) {'ok' if replayed == 5 * expect else 'FAIL'}")
     if replayed != 5 * expect:
@@ -4717,6 +4839,169 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
     total = {k: sum(r[k] for r in runs.values()) for k in KERNELS}
     return total, runs, m
+
+
+# ---- packed trees batched, and the packed configurations at 1.7B ----
+
+
+def phase_mixed_serving(pl, card: str, label: str = "mixed-serving"):
+    """Lockstep serving on the mixed 4/6-bit tree at 0.6B (the mixed-pipeline
+    phase's pipeline: every talker and code-predictor linear on K7 at M =
+    B): serving_step with K7 (16 steps at B = 8 from one graph, 428 launches
+    a step, the tree's packed linears and the K3 configuration's count, its
+    replays' K7 kernels counted by name at every width, B = 8 against B = 1
+    beside the fp32 twin); the graph bit for bit the eager step;
+    generate_many of the 8 serving texts at T = 0.85 with K7 counted
+    (serving_runs). Returns (launch counts summed over the counted runs,
+    metrics)."""
+    t_phase = time.perf_counter()
+    runs, m = {}, {}
+    runs["step"], m["step"] = serving_step(pl, card, label, "packed_matmul", pl32=fp32_twin(pl))
+    graph_vs_eager(pl, card, label=label)
+    runs["generate_many"], m["generate_many"] = serving_runs(
+        pl, card, label, temps=(0.85,), streams=(),
+        need=("packed_matmul",) + SERVING_VOCODER,
+        idle=("talker_step", "cp_frame", "gumbel_sample", "int8_matmul",
+              "pre_transformer_fused"))
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return {k: sum(r[k] for r in runs.values()) for k in KERNELS}, m
+
+
+def frame_calls(pl, steps: dict, calls: list, label: str) -> dict:
+    """K7's launches a decoded frame (decoded_frames' `steps`) against
+    tree_launches, and small_to_mtp_projection's calls among kernel_rows'
+    `calls`: M = 2 once a frame (the first pass's two rows), then M = 1 on
+    each later pass. Returns them."""
+    ng = pl.config.code_predictor_config.num_code_groups - 1
+    per_frame = steps["packed_matmul"] / steps["frames"]
+    expect = tree_launches(pl, "packed_matmul")
+    ptr = pl.cp_params["small_to_mtp_projection"]["wq"].data_ptr()
+    ms = [mm for mm, p in calls if p == ptr]
+    proj = {mm: ms.count(mm) for mm in sorted(set(ms))}
+    want = {1: (ng - 1) * steps["frames"], 2: steps["frames"]}
+    ok = per_frame == expect and proj == want
+    log(f"[{label}] K7 launches a decoded frame: {per_frame:g} over {steps['frames']} frames "
+        f"(expected {expect} from the tree); small_to_mtp_projection's calls by M: {proj} "
+        f"(expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{label}] the frame loop did not run every packed linear on K7 once "
+                         "a frame")
+    return {"k7_per_frame": per_frame, "projection_m": proj}
+
+
+def phase_mixed_1_7b(d: str, card: str):
+    """The mixed 4/6-bit pipeline at 1.7B, loaded from the 1.7b phase's
+    dense dir `d` (runtime_quantization_mode="mixed_4_6", megakernels off:
+    every talker and code-predictor linear on K7, small_to_mtp_projection
+    at 4 bits): generate and generate_stream of HOST_BOUND_FRAMES frames
+    (frame_calls: K7 tree_launches a decoded frame, the projection at M = 2
+    once and then 1 a frame); a profile of the frame loop with K7's kernels
+    by name; mixed_prefill_check in bf16 and on the fp32 twin; serving_step
+    at B = 8 with K7 (the projection M = 16 once, then 8) beside the twin;
+    the graph bit for bit the eager step. Returns (launch counts summed over
+    the counted runs, the counts of each, metrics)."""
+    import torch
+
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    t_phase = time.perf_counter()
+    label, runs, m = "mixed-1.7b", {}, {}
+    mixed = qt.Qwen3TTSPipelineConfiguration(runtime_quantization_mode="mixed_4_6",
+                                             use_talker_megakernel=False,
+                                             use_cp_megakernel=False)
+    with decoded_frames(gen_mod) as steps, kernel_rows() as calls:
+        pl, runs["pipeline"], m["pipeline"] = run_pipeline(
+            card, d, label, mixed, need=("packed_matmul",) + SERVING_VOCODER,
+            idle=("talker_step", "cp_frame", "gumbel_sample", "int8_matmul"),
+            frames=HOST_BOUND_FRAMES)
+    if tree_launches(pl, "packed_matmul") != k3_step_launches(pl.config):
+        raise SystemExit(f"[{label}] the mixed tree does not pack every linear")
+    m["frames"] = frame_calls(pl, steps, calls["packed_matmul"], label)
+    del calls
+    m["profile"] = profile_frames(pl, label, card, steps=2)
+    pl32 = fp32_twin(pl)
+    m["prefill"] = {dt: mixed_prefill_check(p, card, dt, label)
+                    for dt, p in (("bfloat16", pl), ("float32", pl32))}
+    ng = pl.config.code_predictor_config.num_code_groups - 1
+    runs["step"], m["step"] = serving_step(pl, card, "mixed-serving-1.7b", "packed_matmul",
+                                           pl32=pl32, tf_steps=8, projection={8: ng - 1, 16: 1})
+    graph_vs_eager(pl, card, label="mixed-serving-1.7b")
+    del pl, pl32
+    torch.cuda.empty_cache()
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return {k: sum(r[k] for r in runs.values()) for k in KERNELS}, runs, m
+
+
+PREQUANT_1_7B_FRAMES = 96  # generate and generate_stream of the prequant-1.7b phase
+
+
+def phase_prequant_1_7b(d: str, card: str, int8_resident: int):
+    """A pre-quantized 4-bit group-64 1.7B dir (MLX's layout) on the default
+    configuration: a copy of the 1.7b phase's dir `d` packed by
+    testing._pack_talker_weights (every talker and code-predictor linear
+    and table). generate and generate_stream of PREQUANT_1_7B_FRAMES frames
+    with K1 and K2 built from the packed weights and launched once a
+    decoded frame, K7 in the text projection only, K3 and K2g's kernel
+    idle; K7 at the text projection's shapes; K1 / K2 teacher-forced over
+    TF_FRAMES; the resident bytes beside the int8 dir's (`int8_resident`);
+    a profile of the frame loop; serving_step at B = 8 on the `w8r` views
+    with small_to_mtp_projection on K7 (15 launches a step: M = 16 once,
+    then 8) beside the fp32 twin; the graph bit for bit the eager step.
+    Returns (launch counts summed over the counted runs, the counts of
+    each, metrics)."""
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.testing import _pack_talker_weights
+
+    t_phase = time.perf_counter()
+    label, runs, m = "prequant-1.7b", {}, {}
+    with tempfile.TemporaryDirectory() as q:
+        t0 = time.perf_counter()
+        shutil.copytree(d, q, dirs_exist_ok=True)
+        m["copy_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _pack_talker_weights(q, (4,), 64)
+        m["pack_s"] = time.perf_counter() - t0
+        log(f"[{label}] a copy of the 1.7b dir ({m['copy_s']:.1f} s) packed to 4 bits, group 64 "
+            f"(MLX's layout) in {m['pack_s']:.1f} s")
+        with decoded_frames(gen_mod) as steps:
+            pl, runs["pipeline"], m["pipeline"] = run_pipeline(
+                card, q, label, None,
+                need=("talker_step", "cp_frame", "packed_matmul") + SERVING_VOCODER,
+                idle=("gumbel_sample", "int8_matmul"), frames=PREQUANT_1_7B_FRAMES)
+    k1, k2 = runs["pipeline"]["talker_step"], runs["pipeline"]["cp_frame"]
+    ok = (k1 == k2 == steps["frames"] == 2 * PREQUANT_1_7B_FRAMES
+          and steps["packed_matmul"] == steps["int8_matmul"] == 0)
+    log(f"[{label}] generate() and generate_stream() decoded {steps['frames']} frames (expect "
+        f"{2 * PREQUANT_1_7B_FRAMES}): K1 launched {k1} times, K2 {k2}, K7 "
+        f"{steps['packed_matmul']} and K3 {steps['int8_matmul']} times inside them; K7 "
+        f"{runs['pipeline']['packed_matmul']} in all (the text projection) "
+        f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise SystemExit(f"[{label}] K1 and K2 did not run once a frame with K7 in the text "
+                         "projection only")
+    text_projection(pl, card, label, "K7")
+    m["teacher_forced"] = teacher_forced(pl, card, label, frames=TF_FRAMES)
+    res = m["pipeline"]["resident_bytes"]
+    log(f"[{label}] resident {res} bytes against the int8 1.7B dir's {int8_resident} "
+        f"({res / int8_resident:.3f}x) ({card})")
+    m["profile"] = profile_frames(pl, label, card)
+    ng = pl.config.code_predictor_config.num_code_groups - 1
+    if tree_launches(pl, "packed_matmul") != ng:
+        raise SystemExit(f"[{label}] the batched step's packed linears are not the projection's")
+    runs["step"], m["step"] = serving_step(pl, card, "prequant-serving-1.7b", "packed_matmul",
+                                           pl32=fp32_twin(pl), tf_steps=8,
+                                           projection={8: ng - 1, 16: 1}, every_linear=False)
+    graph_vs_eager(pl, card, label="prequant-serving-1.7b")
+    del pl
+    torch.cuda.empty_cache()
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return {k: sum(r[k] for r in runs.values()) for k in KERNELS}, runs, m
 
 
 def main() -> int:
@@ -4808,8 +5093,8 @@ def main() -> int:
         log(f"[k3-pipeline] K3 launches a decoded frame: {results['k3']['k3_per_frame']:g} "
             f"over {steps['frames']} frames")
         no_sync_chunk(pl, "k3-pipeline")
-        profile_frames(pl, "k3-pipeline", card, steps=4)
-        launches["serving_k3"], results["k3_serving"] = serving_k3(pl, card)
+        profile_frames(pl, "k3-pipeline", card, steps=2)
+        launches["serving_k3"], results["k3_serving"] = serving_step(pl, card, "k3-serving")
         mark("k3-pipeline, k3-serving")
         del pl
         torch.cuda.empty_cache()
@@ -4817,17 +5102,28 @@ def main() -> int:
         mixed = qt.Qwen3TTSPipelineConfiguration(runtime_quantization_mode="mixed_4_6",
                                                  use_talker_megakernel=False,
                                                  use_cp_megakernel=False)
-        pl, launches["mixed"], results["mixed"] = run_pipeline(
-            card, d, "mixed-pipeline", mixed, need=("packed_matmul",) + vocoder,
-            idle=megakernels + sampler + ("int8_matmul",), frames=HOST_BOUND_FRAMES)
+        with decoded_frames(gen_mod) as steps:
+            pl, launches["mixed"], results["mixed"] = run_pipeline(
+                card, d, "mixed-pipeline", mixed, need=("packed_matmul",) + vocoder,
+                idle=megakernels + sampler + ("int8_matmul",), frames=HOST_BOUND_FRAMES)
+        results["mixed"]["k7_per_frame"] = steps["packed_matmul"] / steps["frames"]
+        log(f"[mixed-pipeline] K7 launches a decoded frame: "
+            f"{results['mixed']['k7_per_frame']:g} over {steps['frames']} frames (expected "
+            f"{tree_launches(pl, 'packed_matmul')} from the tree; its kernels by name a frame "
+            "in the profile below)")
+        if results["mixed"]["k7_per_frame"] != tree_launches(pl, "packed_matmul"):
+            raise SystemExit("[mixed-pipeline] the frame loop did not run every linear on K7")
         no_sync_chunk(pl, "mixed-pipeline")
-        profile_frames(pl, "mixed-pipeline", card, steps=4)
+        results["mixed"]["profile"] = profile_frames(pl, "mixed-pipeline", card, steps=4)
         mixed_prefill_check(pl, card, "bfloat16")
         # the same in an fp32 model, where no output rounds to bf16: the dir's
         # weights are bf16, so the bf16 model's trees widened (fp32_twin) are
         # the trees an fp32 load builds, packed words and scales alike,
         # without a second load's ~30 s of numpy packing
         mixed_prefill_check(fp32_twin(pl), card, "float32")
+        mark("mixed-pipeline")
+        launches["mixed_serving"], results["mixed_serving"] = phase_mixed_serving(pl, card)
+        mark("mixed-serving")
         del pl
         torch.cuda.empty_cache()
 
@@ -4854,7 +5150,7 @@ def main() -> int:
         log(f"[modes-pipeline] wrote a random-weight 0.6B model dir with the speaker encoder "
             f"(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig()) in "
             f"{time.perf_counter() - t0:.1f} s")
-        mark("mixed-pipeline, prequant-pipeline, writing the modes dir")
+        mark("prequant-pipeline, writing the modes dir")
         launches["modes"], results["modes"] = phase_modes(card, d)
         mark("modes-pipeline")
     launches["verify"], results["verify"] = phase_verify(card)
@@ -4875,6 +5171,13 @@ def main() -> int:
         del pl
         torch.cuda.empty_cache()
         mark("serving-1.7b")
+        (launches["mixed_1_7b"], mixed_1_7b_runs,
+         results["mixed_1_7b"]) = phase_mixed_1_7b(d, card)
+        mark("mixed-1.7b")
+        (launches["prequant_1_7b"], prequant_1_7b_runs,
+         results["prequant_1_7b"]) = phase_prequant_1_7b(d, card,
+                                                          results["1_7b"]["resident_bytes"])
+        mark("prequant-1.7b")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
 
@@ -4916,6 +5219,10 @@ def main() -> int:
         row["launches_1_7b"] = launches["1_7b"][name]
         row["launches_serving_1_7b"] = launches["serving_1_7b"][name]
         row["launches_serving_1_7b_by_run"] = {k: v[name] for k, v in serving_1_7b_runs.items()}
+        row["launches_mixed_serving"] = launches["mixed_serving"][name]
+        for path, runs in (("mixed_1_7b", mixed_1_7b_runs), ("prequant_1_7b", prequant_1_7b_runs)):
+            row[f"launches_{path}"] = launches[path][name]
+            row[f"launches_{path}_by_run"] = {k: v[name] for k, v in runs.items()}
         r17 = rec17.rows[name]
         if r17["ms"] or r17["max_abs_err"]:  # held at 1.7B's shapes: K1, K2, K3, K7
             row["max_abs_err"] = max(row["max_abs_err"], r17["max_abs_err"])
@@ -4923,7 +5230,7 @@ def main() -> int:
                 k: r17[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
                                     "gemv_warm_ms", "gemv_cold_ms", "gemv_bound_ms",
                                     "library_cold_ms", "cold_ms_at_library_shapes",
-                                    "ms_at_library_shapes") if k in r17}
+                                    "ms_at_library_shapes", "shapes") if k in r17}
             row["at_1_7b"]["bound_by"] = ("bytes" if r17["t_bytes"] >= r17["t_ops"]
                                           else "operations")
             if name in ("int8_matmul", "packed_matmul"):

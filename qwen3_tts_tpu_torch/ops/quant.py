@@ -25,10 +25,33 @@ stored per output row as a little-endian bitstream of uint32 words (3- and
 
 from __future__ import annotations
 
+import math
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 _VALID_BITS = (2, 3, 4, 6, 8)
+# numpy frees the GIL in its array work, so the numpy quantizers below split
+# a large weight's rows into blocks, a thread each (_row_blocks). Each row
+# is quantized on its own, so the result is the same bits either way.
+_THREADS = min(8, os.cpu_count() or 1)
+_BLOCK_VALUES = 1 << 20  # the fewest values of the first array worth a thread
+
+
+def _row_blocks(fn, *arrays):
+    """fn(*arrays), where every array and every output of fn hold the same
+    rows on axis 0: run on blocks of rows, one a thread, and concatenated."""
+    n = min(_THREADS, arrays[0].size // _BLOCK_VALUES, arrays[0].shape[0])
+    if n <= 1:
+        return fn(*arrays)
+    blocks = zip(*(np.array_split(a, n) for a in arrays))
+    with ThreadPoolExecutor(n) as pool:
+        parts = list(pool.map(lambda b: fn(*b), blocks))
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate(p) for p in zip(*parts))
+    return np.concatenate(parts)
 
 
 def _check(bits: int, group_size: int, in_dim: int) -> None:
@@ -40,40 +63,57 @@ def _check(bits: int, group_size: int, in_dim: int) -> None:
         raise ValueError(f"in_dim {in_dim} * bits {bits} must be a multiple of 32")
 
 
+def _period(bits: int) -> tuple[int, int]:
+    """(values, words) of the shortest run of whole words that holds whole
+    values: 32 // bits values in one word where bits divides 32, else 32
+    values in `bits` words (6 bits: 16 values in 3 words)."""
+    per = 32 // math.gcd(32, bits)
+    return per, per * bits // 32
+
+
 def pack_bits_np(q: np.ndarray, bits: int) -> np.ndarray:
     """Unsigned values [..., N] -> little-endian bitstream of uint32 words
-    [..., N * bits / 32]."""
+    [..., N * bits / 32], a run of _period's words at a time: value j of a
+    run goes to bit j * bits of the run, its high bits into the next word
+    where it crosses one (the uint32 shift drops them from this word)."""
     q = np.asarray(q, dtype=np.uint32)
     n = q.shape[-1]
     assert (n * bits) % 32 == 0
-    if 32 % bits == 0:
-        per = 32 // bits
-        vals = q.reshape(*q.shape[:-1], n // per, per).astype(np.uint64)
-        shifts = (np.arange(per, dtype=np.uint64) * bits)[None, :]
-        return (vals << shifts).sum(axis=-1).astype(np.uint32)
-    shifts = np.arange(bits, dtype=np.uint32)
-    bits_arr = ((q[..., None] >> shifts) & 1).astype(np.uint8)  # [..., N, bits]
-    flat = bits_arr.reshape(*q.shape[:-1], n * bits)
-    words = flat.reshape(*q.shape[:-1], n * bits // 32, 32)
-    weights = (np.uint32(1) << np.arange(32, dtype=np.uint32))
-    return (words.astype(np.uint32) * weights).sum(axis=-1).astype(np.uint32)
+    per, nw = _period(bits)
+    vals = q.reshape(*q.shape[:-1], n // per, per)
+    out = np.zeros((*vals.shape[:-1], nw), np.uint32)
+    for j in range(per):
+        w, s = divmod(j * bits, 32)
+        out[..., w] |= vals[..., j] << np.uint32(s)
+        if s + bits > 32:
+            out[..., w + 1] |= vals[..., j] >> np.uint32(32 - s)
+    return out.reshape(*q.shape[:-1], n * bits // 32)
 
 
 def unpack_bits_np(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
     """Little-endian uint32 bitstream [..., W] -> uint32 values [..., n]."""
     packed = np.asarray(packed, dtype=np.uint32)
+    mask = np.uint32((1 << bits) - 1)
     if 32 % bits == 0:
         per = 32 // bits
         shifts = (np.arange(per, dtype=np.uint32) * bits)[None, :]
-        mask = np.uint32((1 << bits) - 1)
         vals = (packed[..., None] >> shifts) & mask
         return vals.reshape(*packed.shape[:-1], packed.shape[-1] * per)[..., :n]
-    shifts = np.arange(32, dtype=np.uint32)
-    bit_arr = ((packed[..., None] >> shifts) & 1).astype(np.uint8)
-    flat = bit_arr.reshape(*packed.shape[:-1], packed.shape[-1] * 32)
-    vals = flat[..., : n * bits].reshape(*packed.shape[:-1], n, bits)
-    weights = (np.uint32(1) << np.arange(bits, dtype=np.uint32))
-    return (vals.astype(np.uint32) * weights).sum(axis=-1).astype(np.uint32)
+    # a run of _period's words at a time, as pack_bits_np writes them; the
+    # stream is padded with zero words to whole runs
+    per, nw = _period(bits)
+    pad = -packed.shape[-1] % nw
+    if pad:
+        packed = np.concatenate([packed, np.zeros((*packed.shape[:-1], pad), np.uint32)], -1)
+    words = packed.reshape(*packed.shape[:-1], -1, nw)
+    out = np.empty((*words.shape[:-1], per), np.uint32)
+    for j in range(per):
+        w, s = divmod(j * bits, 32)
+        v = words[..., w] >> np.uint32(s)
+        if s + bits > 32:
+            v |= words[..., w + 1] << np.uint32(32 - s)
+        out[..., j] = v & mask
+    return out.reshape(*packed.shape[:-1], -1)[..., :n]
 
 
 def dequantize_np(
@@ -88,8 +128,6 @@ def dequantize_np(
     out_dim = packed.shape[0]
     in_dim = packed.shape[1] * 32 // bits
     _check(bits, group_size, in_dim)
-    q = unpack_bits_np(packed, bits, in_dim).astype(np.float32)
-    q = q.reshape(out_dim, in_dim // group_size, group_size)
     scales = np.asarray(scales, dtype=np.float32).reshape(out_dim, in_dim // group_size)
     if biases is None:
         biases = np.zeros_like(scales)
@@ -97,8 +135,14 @@ def dequantize_np(
         biases = np.asarray(biases, dtype=np.float32).reshape(
             out_dim, in_dim // group_size
         )
-    w = scales[..., None] * q + biases[..., None]
-    return w.reshape(out_dim, in_dim).astype(dtype)
+
+    def rows(packed, scales, biases):
+        q = unpack_bits_np(packed, bits, in_dim).astype(np.float32)
+        q = q.reshape(len(q), in_dim // group_size, group_size)
+        w = scales[..., None] * q + biases[..., None]
+        return w.reshape(len(q), in_dim).astype(dtype)
+
+    return _row_blocks(rows, np.asarray(packed), scales, biases)
 
 
 def quantize_np(
@@ -108,38 +152,46 @@ def quantize_np(
     biases), scales / biases fp32 [out, in / group]; q = round((w - min) /
     scale)."""
     w = np.asarray(w, dtype=np.float32)
-    out_dim, in_dim = w.shape
-    _check(bits, group_size, in_dim)
-    g = w.reshape(out_dim, in_dim // group_size, group_size)
-    w_min = g.min(axis=-1)
-    w_max = g.max(axis=-1)
-    denom = float(2**bits - 1)
-    scales = (w_max - w_min) / denom
-    scales = np.where(scales <= 1e-12, 1.0, scales).astype(np.float32)
-    biases = w_min.astype(np.float32)
-    q = np.clip(np.round((g - biases[..., None]) / scales[..., None]), 0, denom)
-    q = q.astype(np.uint32).reshape(out_dim, in_dim)
-    return pack_bits_np(q, bits), scales, biases
+    _check(bits, group_size, w.shape[1])
+
+    def rows(w):
+        g = w.reshape(w.shape[0], w.shape[1] // group_size, group_size)
+        w_min = g.min(axis=-1)
+        w_max = g.max(axis=-1)
+        denom = float(2**bits - 1)
+        scales = (w_max - w_min) / denom
+        scales = np.where(scales <= 1e-12, 1.0, scales).astype(np.float32)
+        biases = w_min.astype(np.float32)
+        q = np.clip(np.round((g - biases[..., None]) / scales[..., None]), 0, denom)
+        return pack_bits_np(q.astype(np.uint32).reshape(w.shape), bits), scales, biases
+
+    return _row_blocks(rows, w)
 
 
 def unpack_bits_torch(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     """Little-endian 32-bit bitstream [..., W] (uint32 or int32 words) ->
-    int64 values [..., n], on packed's device. Values that cross a word
-    boundary (3 and 6 bits) take their high bits from the next word."""
-    words = packed.view(torch.int32).long() & 0xFFFFFFFF  # logical shifts below
+    int32 values [..., n], on packed's device, a run of _period's words at
+    a time. Values that cross a word boundary (3 and 6 bits) take their
+    high bits from the next word. The words are read as int32: a right
+    shift copies the sign bit down, so the bits a value takes from its own
+    word are masked before the next word's are added."""
+    words = packed.view(torch.int32)
     mask = (1 << bits) - 1
-    if 32 % bits == 0:
-        per = 32 // bits
-        shifts = torch.arange(per, device=packed.device) * bits
+    per, nw = _period(bits)
+    if nw == 1:
+        shifts = torch.arange(per, device=packed.device, dtype=torch.int32) * bits
         vals = (words[..., None] >> shifts) & mask
         return vals.reshape(*packed.shape[:-1], packed.shape[-1] * per)[..., :n]
-    bit_lo = torch.arange(n, device=packed.device) * bits
-    word_lo = bit_lo // 32
-    off = bit_lo % 32
-    lo = words.index_select(-1, word_lo) >> off
-    word_hi = torch.clamp(word_lo + 1, max=packed.shape[-1] - 1)
-    hi = torch.where(off + bits > 32, words.index_select(-1, word_hi) << (32 - off), 0)
-    return (lo | hi) & mask
+    runs = torch.nn.functional.pad(words, (0, -words.shape[-1] % nw))
+    runs = runs.reshape(*runs.shape[:-1], -1, nw)
+    vals = []
+    for j in range(per):
+        w, s = divmod(j * bits, 32)
+        v = runs[..., w] >> s
+        if s + bits > 32:
+            v = (v & ((1 << (32 - s)) - 1)) | (runs[..., w + 1] << (32 - s))
+        vals.append(v & mask)
+    return torch.stack(vals, -1).reshape(*runs.shape[:-2], -1)[..., :n]
 
 
 def dequantize_torch(
@@ -190,28 +242,28 @@ def quantize_int8_np(
     """Affine int8 quantization with byte storage: w ~= scales * q + biases,
     q uint8 per group of `group_size` inputs."""
     w = np.asarray(w, np.float32)
-    out_dim, in_dim = w.shape
-    if in_dim % group_size != 0:
-        raise ValueError(f"in_dim {in_dim} not divisible by group {group_size}")
-    g = w.reshape(out_dim, in_dim // group_size, group_size)
-    w_min = g.min(axis=-1)
-    w_max = g.max(axis=-1)
-    scales = np.maximum((w_max - w_min) / 255.0, 1e-12).astype(np.float32)
-    biases = w_min.astype(np.float32)
-    q = np.clip(np.round((g - biases[..., None]) / scales[..., None]), 0, 255)
-    return q.reshape(out_dim, in_dim).astype(np.uint8), scales, biases
+    if w.shape[1] % group_size != 0:
+        raise ValueError(f"in_dim {w.shape[1]} not divisible by group {group_size}")
+
+    def rows(w):
+        g = w.reshape(w.shape[0], w.shape[1] // group_size, group_size)
+        w_min = g.min(axis=-1)
+        w_max = g.max(axis=-1)
+        scales = np.maximum((w_max - w_min) / 255.0, 1e-12).astype(np.float32)
+        biases = w_min.astype(np.float32)
+        q = np.clip(np.round((g - biases[..., None]) / scales[..., None]), 0, 255)
+        return q.reshape(w.shape).astype(np.uint8), scales, biases
+
+    return _row_blocks(rows, w)
 
 
 def _quantize_int8_entry(entry: dict, group_size: int) -> dict:
+    """Dense {"w"[, "b"]} -> {"w8", "scales", "biases"[, "b"]}, leading
+    (stacked) axes kept: their rows are quantized as one matrix."""
     w = np.asarray(entry["w"], np.float32)
-    lead = w.shape[:-2]
-    w2 = w.reshape(-1, w.shape[-2], w.shape[-1])
-    q, scales, biases = zip(*(quantize_int8_np(wi, group_size) for wi in w2))
-    out = {
-        "w8": np.stack(q).reshape(*lead, w.shape[-2], w.shape[-1]),
-        "scales": np.stack(scales).reshape(*lead, w.shape[-2], -1),
-        "biases": np.stack(biases).reshape(*lead, w.shape[-2], -1),
-    }
+    q, scales, biases = quantize_int8_np(w.reshape(-1, w.shape[-1]), group_size)
+    out = {"w8": q.reshape(w.shape), "scales": scales.reshape(*w.shape[:-1], -1),
+           "biases": biases.reshape(*w.shape[:-1], -1)}
     if "b" in entry:
         out["b"] = entry["b"]
     return out
@@ -255,16 +307,12 @@ _SIX_BIT_NAMES = ("qkv_proj", "codec_head", "lm_head")
 
 def _quantize_linear_entry(entry: dict, bits: int, group_size: int) -> dict:
     """Dense {"w"[, "b"]} -> packed {"wq", "scales", "biases"[, "b"]}, leading
-    (stacked) axes kept."""
+    (stacked) axes kept: their rows are quantized as one matrix."""
     w = np.asarray(entry["w"], np.float32)
-    lead = w.shape[:-2]
-    w2 = w.reshape(-1, w.shape[-2], w.shape[-1])
-    packed, scales, biases = zip(*(quantize_np(wi, bits, group_size) for wi in w2))
-    out = {
-        "wq": np.stack(packed).reshape(*lead, w.shape[-2], -1),
-        "scales": np.stack(scales).reshape(*lead, w.shape[-2], -1),
-        "biases": np.stack(biases).reshape(*lead, w.shape[-2], -1),
-    }
+    packed, scales, biases = quantize_np(w.reshape(-1, w.shape[-1]), bits, group_size)
+    out = {"wq": packed.reshape(*w.shape[:-1], -1),
+           "scales": scales.reshape(*w.shape[:-1], -1),
+           "biases": biases.reshape(*w.shape[:-1], -1)}
     if "b" in entry:
         out["b"] = entry["b"]
     return out
@@ -309,12 +357,17 @@ def quantize_rowwise_int8_np(w: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.
     leading axes are kept (rows = last-but-one axis). The megakernels'
     weight format."""
     w = np.asarray(w, np.float32)
-    mx = w.max(axis=-1)
-    mn = w.min(axis=-1)
-    scale = np.maximum((mx - mn) / 254.0, 1e-12).astype(np.float32)
-    mid = ((mx + mn) / 2.0).astype(np.float32)
-    q = np.clip(np.round((w - mid[..., None]) / scale[..., None]), -127, 127)
-    return q.astype(np.int8), scale, mid
+
+    def rows(w):
+        mx = w.max(axis=-1)
+        mn = w.min(axis=-1)
+        scale = np.maximum((mx - mn) / 254.0, 1e-12).astype(np.float32)
+        mid = ((mx + mn) / 2.0).astype(np.float32)
+        q = np.clip(np.round((w - mid[..., None]) / scale[..., None]), -127, 127)
+        return q.astype(np.int8), scale, mid
+
+    q, scale, mid = _row_blocks(rows, w.reshape(-1, w.shape[-1]))
+    return q.reshape(w.shape), scale.reshape(w.shape[:-1]), mid.reshape(w.shape[:-1])
 
 
 # Talker / code-predictor layer linears whose entries are views of the

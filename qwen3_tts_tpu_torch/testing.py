@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -806,31 +805,23 @@ def _pack_talker_weights(path: str, widths, group_size: int) -> None:
     main_path = os.path.join(path, "model.safetensors")
     stored = safetensors_io.load_header(main_path)
     weights = safetensors_io.load_file(main_path)
-    out, packing = {}, {}
-    i = 0
-    # numpy releases the GIL in the quantizer's array work: the weights
-    # pack on a thread each (a 0.6B talker's ~0.8 G values at full width)
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        for key in sorted(weights):
-            a = np.asarray(weights[key])
-            if (key.startswith("talker.") and key.endswith(".weight") and a.ndim == 2
-                    and "norm" not in key and a.shape[-1] % group_size == 0):
-                bits = widths[i % len(widths)]
-                i += 1
-                if (a.shape[-1] * bits) % 32:
-                    bits = 4
-                packing[key] = pool.submit(quantize_np, a.astype(np.float32), bits, group_size)
-                out[key] = None  # keeps the key order
-            elif stored[key][0] == "BF16":  # bf16 is exact in the fp32 it was read as
-                out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
-            else:
-                out[key] = a
-        for key, job in packing.items():
-            packed, scales, biases = job.result()
+    out, i = {}, 0
+    for key in sorted(weights):
+        a = np.asarray(weights[key])
+        if (key.startswith("talker.") and key.endswith(".weight") and a.ndim == 2
+                and "norm" not in key and a.shape[-1] % group_size == 0):
+            bits = widths[i % len(widths)]
+            i += 1
+            if (a.shape[-1] * bits) % 32:
+                bits = 4
             stem = key[: -len(".weight")]
-            out[key] = packed
-            out[f"{stem}.scales"] = scales
-            out[f"{stem}.biases"] = biases
+            # quantize_np splits a large weight's rows over threads
+            out[key], out[f"{stem}.scales"], out[f"{stem}.biases"] = quantize_np(
+                a.astype(np.float32), bits, group_size)
+        elif stored[key][0] == "BF16":  # bf16 is exact in the fp32 it was read as
+            out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+        else:
+            out[key] = a
     safetensors_io.save_file(out, main_path)
     cfg_path = os.path.join(path, "config.json")
     with open(cfg_path, encoding="utf-8") as f:

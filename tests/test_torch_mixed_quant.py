@@ -103,3 +103,39 @@ def test_packed_lookups_match_jax():
         assert got.shape == (2, 2, 128)
         assert rel(got.numpy(), jlinear.embedding_lookup(tab_j, jnp.asarray(ids),
                                                          jnp.float32)) <= 1e-6
+
+
+def test_wide_rows_pinned_to_the_jax_package():
+    """At the 1.7B widths (K = 2048, 6144) every width's words cross word
+    boundaries the way they do in a checkpoint (3 and 6 bits: 32 and 16
+    values in 3 words), and the numpy quantizers split a weight of 2 M
+    values or more into row blocks on threads: pack_bits_np, unpack_bits_np,
+    quantize_np, dequantize_np and the int8 quantizers equal the JAX
+    package's, and the mixed tree of a stacked weight equals JAX's."""
+    rng = np.random.default_rng(3)
+    for bits in (2, 3, 4, 6, 8):
+        for k in (2048, 6144):
+            q = rng.integers(0, 2 ** bits, (3, k)).astype(np.uint32)
+            packed = tquant.pack_bits_np(q, bits)
+            np.testing.assert_array_equal(packed, jquant.pack_bits_np(q, bits))
+            np.testing.assert_array_equal(tquant.unpack_bits_np(packed, bits, k), q)
+            np.testing.assert_array_equal(tquant.unpack_bits_np(packed[:, :-1], bits, k // 2),
+                                          jquant.unpack_bits_np(packed[:, :-1], bits, k // 2))
+    w = (rng.standard_normal((1200, 2048)) * 0.05).astype(np.float32)  # 3 row blocks
+    assert w.size // tquant._BLOCK_VALUES >= 2
+    for bits in (4, 6):
+        mine, ref = tquant.quantize_np(w, bits, 64), jquant.quantize_np(w, bits, 64)
+        for a, b in zip(mine, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(tquant.dequantize_np(*mine, bits, 64),
+                                      jquant.dequantize_np(*ref, bits, 64))
+    for a, b in zip(tquant.quantize_int8_np(w), jquant.quantize_int8_np(w)):
+        np.testing.assert_array_equal(a, b)
+    stacked = w.reshape(2, 600, 2048)
+    for a, b in zip(tquant.quantize_rowwise_int8_np(stacked),
+                    jquant.quantize_rowwise_int8_np(stacked)):
+        np.testing.assert_array_equal(a, b)
+    tree = {"layers": {"qkv_proj": {"w": stacked}, "o_proj": {"w": stacked[:, :300]}}}
+    assert_trees_equal(tquant.apply_mixed_quantization(tree),
+                       jquant.apply_mixed_quantization(tree, kernel_layout=False))
