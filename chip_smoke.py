@@ -6,7 +6,12 @@ Phases, in this order (each prints its own lines; any failure exits
 non-zero):
   device      - the card's name and power limit; TF32 off for fp32 references
   build       - nvcc builds the kernels from qwen3_tts_tpu_torch/csrc/, one
-                process per source, in parallel
+                process per source, in parallel, while this process writes
+                the 0.6B dir; then one spawned child process (DirWriter)
+                writes the later phases' dirs (the pre-quantized, modes and
+                verify 0.6B dirs, the 1.7B dir and its 4-bit packed copy) while
+                the phases before them run, and each of those phases waits
+                for its dir
   megakernels - K1 (talker step, C = 260 with a wrapped ring, a trimmed
                 window of ~200 slots and one of 3 slots), K2 (code-predictor
                 frame, with and without the repetition penalty) and K2g
@@ -57,7 +62,14 @@ non-zero):
                 tensor-core conv) at blocks 0-3, at K6's shapes; and one
                 bf16 torch conv1d of block 0's first 7-tap conv beside K6's
                 launch of it, as a yardstick for the tile (the port never
-                calls conv1d)
+                calls conv1d); at B = 32's shapes (b32_kernels, the kernels
+                line's "at_b32"): K4, K5 and every block's upsample and K6
+                at B = 32 for T = 26 and 48, K6 and the upsample on block 3
+                at 40 and 64 rows of T = 110 (past the old 65,535-tile grid
+                cap: one launch a conv, rows 0, 38, 39, 40 and the last
+                against the plain versions), K3 and K7 (4 / 6 bits) at M =
+                32 and 64 on the step's linears, warm, K7's 4-bit calls
+                beside torch._weight_int4pack_mm
   fused-pretransformer - K4a's own entry point, pre_transformer_fused, on
                 the 0.6B vocoder's pre-transformer (no pipeline path runs
                 it, in this port or in the JAX package): launch counts, and
@@ -76,7 +88,7 @@ non-zero):
                 prefill's ms (in every pipeline phase); K3 timed at the
                 text projection's own shapes; a decode chunk with no
                 host sync; K1/K2 against their plain versions teacher-forced
-                over the first TF_FRAMES (24) generated frames; the kernel
+                over the first TF_FRAMES (16) generated frames; the kernel
                 vocoder against the plain one, with fp32 and with bf16
                 kernel weights; the
                 device time of a 26-frame and a 110-frame vocoder window by
@@ -85,20 +97,31 @@ non-zero):
                 (megakernel configuration's weights; the batched path drops
                 the megakernels and runs the `w8r` product at M = B):
                 generate_many on 8 texts of different lengths at
-                temperature 0 and 0.85, generate_many_stream on the 8
+                temperature 0 and 0.85 (SERVE_TOKENS, 48 frames a
+                stream), generate_many_stream on the 8
                 (batch_size=8) and on 6 through 4 slots (2 admitted
                 mid-flight); each lockstep step one CUDA graph replay; the
                 audio checked, K4, K5, K6, the blocks' upsample and K3 (text
-                projection) launched, K1 and K2 not; then the step at B = 1,
-                4, 8 by graph and eagerly (wall, device, capture s, graph
+                projection) launched, K1 and K2 not; every stream vocoder
+                call [batch_size, 16, 26]; then the step at B = 1, 4, 8, 16,
+                32 by graph and eagerly (wall, device, capture s, graph
                 pool bytes, frames/s), the graph against the eager step at
                 temperature 0 (same frames and state), and B = 8 against
                 B = 1 teacher-forced (TOL_BATCH, no code-0 flip outside a
                 near-tie); the `w8r` product against the fp32 product it
                 replaced (TF32 off) at the step's shapes, M = 8
+  serving-32  - the same model at B = 32, the JAX package's serving batch:
+                generate_many of 32 texts at T = 0.85 and MANY_32_TOKENS
+                (120) frames, its one vocoder call at least 40 rows of 110
+                frames (past K6's old grid cap), generate_many_stream of
+                the 32 at batch_size=32 ([32, 16, 26] windows), the audio
+                checked, K3-K6 and the upsample launched, K1 / K2 not; the
+                `w8r` product at M = 32; the B = 32 graph bit for bit its
+                eager step; B = 32 against B = 1 teacher-forced over 8
+                steps beside the fp32 twin (BATCH_ROUNDING's checks)
   service     - the always-on service over HTTP on localhost, on the same
                 model: server.serve(batch_size=8, warmup=True), then a burst
-                of 8 streamed requests at temperature 0, 4 staggered
+                of 8 streamed 48-frame requests at temperature 0, 4 staggered
                 arrivals into the running batch (one at 0.85), a client
                 that hangs up after its first audio, a /v1/audio/speech pcm
                 request and a /tts_many of 2 texts beside the busy service;
@@ -109,6 +132,12 @@ non-zero):
                 stream teacher-forced against B = 1 on its own frames;
                 first PCM byte per request, serving RTF and frames/s over
                 the burst, warmup seconds
+  service-32  - server.serve(batch_size=32, warmup=True) on the same model:
+                a burst of 32 streamed requests of 48 frames at T = 0, every
+                response well formed, /stats identities after the drain, no
+                capture after warmup, K1 / K2 idle, streams 0 and 31
+                teacher-forced against B = 1 beside the fp32 twin; first
+                PCM byte (min, median, max), burst RTF
   k3-pipeline - the same with the megakernels off (every linear on K3),
                 4 frames (host-bound: few, for the script's time); then 16
                 lockstep steps at B = 8 from one graph (K3's
@@ -116,6 +145,12 @@ non-zero):
                 launches at M = 8 and 16; the replays' K3 kernels are
                 counted by name in a profile of 5 replays: a step's
                 launches each)
+  k3-serving-32 - the K3 step at B = 32: 428 K3 a step, all past M0 on the
+                tile (M = 32, 64 on the code predictor's first pass) in the
+                graph, counted at the wrapper (twice a step's) and by the
+                tile's name in 5 replays; the step's times; B = 32 against
+                B = 1 beside the fp32 twin; the graph bit for bit its eager
+                step
   mixed-pipeline - runtime_quantization_mode="mixed_4_6" with the
                 megakernels off on the same dir, 4 frames: every talker and
                 code-predictor linear on K7 at 4 or 6 bits, K1-K3 idle, K7's
@@ -133,6 +168,8 @@ non-zero):
                 profile of 5 replays), the step's times, B = 8 against
                 B = 1 beside the fp32 twin, the graph bit for bit the eager
                 step, generate_many of 8 texts at temperature 0.85
+  mixed-serving-32 - the same at B = 32: 428 K7 a step on the tile at 4 and
+                6 bits, as k3-serving-32
   prequant-pipeline - a 0.6B dir pre-quantized to 4 bits, group 64 (MLX's
                 layout, written by write_prequantized_model_dir), in the
                 default configuration: K1, K2, K7 (text projection),
@@ -175,18 +212,18 @@ non-zero):
                 the dense bf16 configuration (no runtime quantization, K1
                 off): two spawned ranks share the card over gloo at tp = 2
                 (8 / 4 heads and 1,536 MLP columns a rank); generate() of
-                12 greedy frames on every rank (K2 once a frame on each, K4,
+                8 greedy frames on every rank (K2 once a frame on each, K4,
                 K5, K6 and the blocks' upsample on the vocode), teacher-
                 forced against the unsharded run (TOL_TP; the same weights
                 in fp32 at TOL["float32"]), free-running departures only at
                 a near tie (code 0 within NEAR_TIE, a code-predictor code
                 within NEAR_TIE_CP); the serving cycle at B = 8
-                (two 6-step chunks, park_slot, admit_stream, a chunk), eager,
+                (two 4-step chunks, park_slot, admit_stream, a chunk), eager,
                 teacher-forced against the unsharded eager step; a dp
                 vocode of codes [8, 16, 110] split 4 + 4 against the
                 unsharded decode; TTSService with rank 0 serving and rank 1
                 following (a burst of 3, one arrival into the running batch,
-                24 frames each) against the unsharded service; ms a frame
+                12 frames each) against the unsharded service; ms a frame
                 and a step with all-reduces counted, sharded and unsharded;
                 a one-process NCCL tp = 1 mesh through the sharded code,
                 its frames the unsharded run's; NCCL tp = 2 across cards
@@ -237,7 +274,7 @@ non-zero):
                 teacher-forced with BATCH_ROUNDING's checks (the same on an
                 fp32 twin of the tree at TOL["float32"], bf16 at the larger
                 of TOL_BATCH and the derived bound); the service over HTTP
-                (a burst of 8 streamed 96-frame requests at temperature 0,
+                (a burst of 8 streamed 48-frame requests at temperature 0,
                 first PCM byte, /stats identities, no capture after warmup,
                 each stream against B = 1 beside the twin's prefill of the
                 burst, near ties judged on its scores); then the K3
@@ -262,7 +299,7 @@ non-zero):
                 with K1 and K2 built from the packed weights and launched
                 once a frame, K7 in the text projection only, K3 and K2g's
                 kernel idle; K7 timed at the text projection's shapes; K1 /
-                K2 teacher-forced over TF_FRAMES (24); the resident bytes
+                K2 teacher-forced over TF_FRAMES (16); the resident bytes
                 beside the int8 dir's; a profile of the frame loop; the `w8r`
                 lockstep step at B = 8 from one graph with the projection on
                 K7 (15 a step: M = 16 once, then 8, counted by name in 5
@@ -280,7 +317,10 @@ traffic, the K3 configuration's pipeline and its lockstep graph's warm-up
 and capture; each in "launches_serving_1_7b_by_run"), "launches_mixed_serving"
 on the mixed-serving phase's graph warm-up and capture and its
 generate_many, "launches_mixed_1_7b" and "launches_prequant_1_7b" on those
-phases' pipelines and lockstep graphs (each run in "..._by_run"):
+phases' pipelines and lockstep graphs (each run in "..._by_run"),
+"launches_serving_32" on the B = 32 runs summed (serving-32's counted run,
+service-32's traffic, the K3 and mixed B = 32 graphs' warm-up and capture;
+each in "launches_serving_32_by_run"):
 the wrappers' calls, eager and captured, not the graph replays; the rows held
 at the 1.7B shapes (K1, K2, K3, K7) also "at_1_7b", their error, times,
 bounds and library time there, and max_abs_err over both models (K7's
@@ -289,7 +329,9 @@ at the 1.7B linears at M = 8, warm, cold, bound and library); K7's
 row also has its library call's time, torch._weight_int4pack_mm at its
 4-bit shapes, beside its own there, warm and cold; K3's and K7's rows also
 their GEMV's M = 1 main-path calls summed warm, cold and as a bound, the
-cold floor, M0 and the sweep's M0) and the last is {"ok": true, "device": {...}}.
+cold floor, M0 and the sweep's M0; K3's, K7's, K4's, K5's, K6's and the
+upsample's rows also "at_b32", each call at B = 32's shapes with its error,
+times and bound) and the last is {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
 again by replaying a CUDA graph of it (device time, without Python's
@@ -304,6 +346,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -498,6 +541,7 @@ class Record:
         self.tag = tag
         self.rows = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "t_bytes": 0.0, "t_ops": 0.0, "library_ms": None} for k in KERNELS}
+        self.b32: dict = {}  # kernel -> its calls at the B = 32 shapes (b32_kernels)
 
     def add(self, name, label, dtype, err, abs_err, tol, timing, plain_timing, nb, ops,
             extra="", timed=True):
@@ -809,6 +853,200 @@ def phase_kernels(rec: Record) -> None:
                         conv_yardstick(bp, y)
                 x = got if got.dim() == 3 else None
     torch.cuda.synchronize()
+    b32_kernels(rec, dense, cfg, gen)
+
+
+# the lockstep step's linears at 0.6B, (name, K, O, K7's bits): 4-bit
+# gate/up, o and down, 6-bit qkv, codec head and cp lm head (the mixed mode)
+STEP_LINEARS = (("qkv", 1024, 4096, 6), ("o", 2048, 1024, 4), ("gate/up", 1024, 6144, 4),
+                ("down", 3072, 1024, 4), ("codec head", 1024, 3072, 6),
+                ("cp lm head", 1024, 2048, 6))
+# block 3's rows of 110 frames past the old grid cap (39 rows), and the rows
+# held against the plain versions there (both sides of the cap, the last)
+CAP_ROWS, CAP_CHECKED = (40, 64), (0, 38, 39, 40)
+FP32_CAP_ROWS = 20  # past the fp32 GEMM's old cap (19 rows of 110 frames)
+
+
+def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
+    """The kernels at B = 32 serving's shapes, bf16 weights, each against
+    its plain version at TOL bf16 with its time and bound, into rec.b32
+    (the kernels line's "at_b32"): K4, K5 (fp32 input, as the pipeline
+    gives it) and, per SEANet block, its upsample and K6 at B = 32 for a
+    serve window's T = 26 and serving_rtf's vocode of T = 48; K6 and the
+    upsample on block 3 at 40 and 64 rows of T = 110 (the repaired shapes:
+    one launch a conv, counted at the C entry; rows 0, 38, 39, 40 and the
+    last held against the plain versions, which need ~5 GB a tensor at 64
+    rows whole); K3 and K7 (4 and 6 bits) at M = 32 and 64 on the lockstep
+    step's linears, warm (a graph of one call), K7's 4-bit calls beside
+    torch._weight_int4pack_mm."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import (
+        _build,
+        packed_matmul as pm,
+        pretransformer_kernel as ptk,
+        quant_matmul as qm,
+        upsample_kernel as upk,
+        vocoder_kernels as vk,
+    )
+
+    dev, dt = torch.device("cuda"), "bfloat16"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def row(name, label, got, ref, timing, plain_timing, nb, ops, rows_checked="all",
+            dtype=dt, **extra):
+        """One call's comparison; the plain version timed on rows_checked
+        (its time is "plain_ms" only where that is every row)."""
+        whole = rows_checked == "all"
+        note = "" if whole else f"; the plain version on rows {rows_checked}"
+        rec.compare(name, f"{label} (B = 32 shapes{note})", dtype, got, ref, timing,
+                    plain_timing, nb, ops, timed=False)
+        b_ms, b_by = bound(nb, ops)
+        rec.b32.setdefault(name, []).append({
+            "shape": label, "dtype": dtype, "rel_rms": rel_rms(got.float(), ref.float()),
+            "ms": timing[0],
+            "plain_ms" if whole else "plain_ms_on_rows_checked": plain_timing[0],
+            "rows_checked": rows_checked, "bound_ms": b_ms, "bound_by": b_by, **extra})
+
+    t_part = time.perf_counter()
+    kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
+    kp = ptk.build_pretransformer_params(dense["pre_transformer"], cfg, torch.bfloat16)
+    mats = weight_numel(kp, ("wi", "wqkv", "wo", "wgu", "wd", "wout"))
+    stages = dense["upsample"]
+    ups = [upk.build_upsample_stage_params(
+        st, torch.bfloat16,
+        initial_conv=dense["decoder"]["initial_conv"] if i == len(stages) - 1 else None)
+        for i, st in enumerate(stages)]
+    blocks = dense["decoder"]["blocks"]
+    bps = [vk.build_seanet_block_params(
+        block, rate, torch.bfloat16,
+        tail=({"snake": dense["decoder"]["out_snake"], "conv": dense["decoder"]["out_conv"]}
+              if i == len(blocks) - 1 else None))
+        for i, (block, rate) in enumerate(zip(blocks, cfg.upsample_rates))]
+
+    def block_rows(i, bp, x, label, check=None, dtype=dt):
+        """block i's upsample and K6 on x; `check`: the rows held against
+        the plain versions (all when None). With fp32 weights (`dtype`) the
+        exact fp32 GEMM of csrc/gemm.cuh runs, whose grid is counted by
+        launches of qt_units_gemm: 1 + 7."""
+        rate = cfg.upsample_rates[i]
+        lib, entry = _build.lib(), "qt_units_conv" if dtype == dt else "qt_units_gemm"
+        real, convs = getattr(lib, entry), []
+
+        def counting(*args):
+            convs.append(args)
+            return real(*args)
+
+        setattr(lib, entry, counting)
+        try:
+            y = vk.block_upsample_kernel(bp, x, rate=rate)
+            got = vk.residual_units_kernel(bp, y)
+            torch.cuda.synchronize()
+        finally:
+            setattr(lib, entry, real)
+        if len(convs) != 7 + ("t_w" in bp and dtype != dt):
+            raise SystemExit(f"[kernels] block{i} {label}: {len(convs)} launches of {entry}, "
+                             "not one a conv")
+        checked = "all" if check is None else list(check)
+        sl = slice(None) if check is None else checked
+        up_ops = 2 * x.shape[0] * x.shape[1] * bp["up_w"].numel()
+        row("block_upsample", f"block{i} {label}", y[sl],
+            vk.block_upsample_plain(bp, x[sl], rate=rate),
+            time_ms(lambda: vk.block_upsample_kernel(bp, x, rate=rate), 3),
+            time_ms(lambda: vk.block_upsample_plain(bp, x[sl], rate=rate), 2),
+            nbytes(x, y, bp["up_w"], bp["up_b"], bp["snake_a"], bp["snake_binv"]),
+            {dtype: up_ops}, rows_checked=checked, dtype=dtype)
+        rows = y.shape[0] * y.shape[1]
+        units = [v for k, v in bp.items() if k.startswith(("u_", "t_"))]
+        row("residual_units", f"block{i} {label}", got[sl], vk.residual_units_plain(bp, y[sl]),
+            time_ms(lambda: vk.residual_units_kernel(bp, y), 3),
+            time_ms(lambda: vk.residual_units_plain(bp, y[sl]), 2), nbytes(y, got, *units),
+            {dtype: 2 * rows * weight_numel(bp, ("u_w1", "u_w2", "t_w"))},
+            rows_checked=checked, dtype=dtype)
+        return got
+
+    for t in (26, 48):
+        x = randn(32, t, cfg.latent_dim).to(torch.bfloat16)
+        got = ptk.pre_transformer_kernel(kp, x, **kw)
+        attn = 2 * kp["wqkv"].shape[0] * cfg.num_attention_heads * cfg.head_dim * t * (t + 1)
+        row("pre_transformer", f"B=32 T={t}", got, ptk.pre_transformer_plain(kp, x, **kw),
+            time_ms(lambda: ptk.pre_transformer_kernel(kp, x, **kw), 10),
+            time_ms(lambda: ptk.pre_transformer_plain(kp, x, **kw), 2),
+            nbytes(x, got, *kp.values()), {dt: 32 * (2 * t * mats + attn)})
+        x = randn(32, t, cfg.latent_dim)
+        for i, sp in enumerate(ups):
+            got, ti = upk.upsample_stage_kernel(sp, x), x.shape[1]
+            row("upsample_stage", f"stage{i} B=32 T={ti}", got, upk.upsample_stage_plain(sp, x),
+                time_ms(lambda: upk.upsample_stage_kernel(sp, x), 5),
+                time_ms(lambda: upk.upsample_stage_plain(sp, x), 2),
+                nbytes(x, got, *sp.values()), {dt: 32 * upsample_ops(sp, ti)})
+            x = got
+        x = randn(32, 4 * t, cfg.decoder_dim, scale=0.5).to(torch.bfloat16)
+        for i, bp in enumerate(bps):
+            x = block_rows(i, bp, x, f"B=32 T={x.shape[1]}")
+        del x, got
+        torch.cuda.empty_cache()
+    i = len(bps) - 1
+    t_in = 4 * 110 * int(np.prod(cfg.upsample_rates[:-1]))
+    for rows in CAP_ROWS:
+        x = randn(rows, t_in, bps[i]["snake_a"].shape[0], scale=0.5).to(torch.bfloat16)
+        block_rows(i, bps[i], x, f"{rows} rows of T=110 (S={t_in})",
+                   check=sorted({r for r in CAP_CHECKED if r < rows} | {rows - 1}))
+        del x
+        torch.cuda.empty_cache()
+    # the exact fp32 path (fp32 weights) had the same cap on its GEMM's grid
+    # at 65,535 row tiles of 64: 19 rows of 110 frames on block 3
+    bp32 = vk.build_seanet_block_params(
+        blocks[i], cfg.upsample_rates[i], torch.float32,
+        tail={"snake": dense["decoder"]["out_snake"], "conv": dense["decoder"]["out_conv"]})
+    x = randn(FP32_CAP_ROWS, t_in, bp32["snake_a"].shape[0], scale=0.5)
+    block_rows(i, bp32, x, f"{FP32_CAP_ROWS} rows of T=110 (S={t_in})",
+               check=(0, FP32_CAP_ROWS - 1), dtype="float32")
+    del x, bp32
+    torch.cuda.empty_cache()
+    log(f"[kernels] K4, K5, K6 and the upsample at the B = 32 shapes and block 3 at "
+        f"{CAP_ROWS} rows of 110 frames: {time.perf_counter() - t_part:.1f} s")
+
+    for name, k, o, bits in STEP_LINEARS:
+        w8, s8, b8 = qmm_weights(gen, dev, None, k, o)
+        wq, sq, bq = qmm_weights(gen, dev, bits, k, o)
+        lib_w = int4pack_weights(wq, sq, bq, k) if bits == 4 else None
+        for m in (32, 64):
+            x = randn(m, k).to(torch.bfloat16)
+            got = qm.int8_matmul_kernel(x, w8, s8, b8)
+            row("int8_matmul", f"{name} M={m} K={k} O={o}", got,
+                qm.int8_matmul_plain(x, w8, s8, b8),
+                (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s8, b8)), "graph"),
+                time_ms(lambda: qm.int8_matmul_plain(x, w8, s8, b8), 5),
+                nbytes(x, w8, s8, b8, got), {dt: 2 * m * k * o})
+            got = pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)
+            extra = {}
+            if lib_w is not None:
+                lib = torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])
+                err = rel_rms(lib.float(), got.float())
+                if not err <= TOL[dt]:
+                    raise SystemExit(f"torch._weight_int4pack_mm disagrees with K7 ({err:.3e})")
+                extra = {"library_ms": graph_ms(
+                    lambda: torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])),
+                    "library_call": "torch._weight_int4pack_mm", "library_rel_rms": err}
+            row("packed_matmul", f"{bits}-bit {name} M={m} K={k} O={o}", got,
+                pm.packed_matmul_plain(x, wq, sq, bq, bits, 64),
+                (graph_ms(lambda: pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)), "graph"),
+                time_ms(lambda: pm.packed_matmul_plain(x, wq, sq, bq, bits, 64), 5),
+                nbytes(x, wq, sq, bq, got), {dt: 2 * m * k * o}, **extra)
+            if extra:
+                k7 = rec.b32["packed_matmul"][-1]["ms"]
+                log(f"[kernels] library, packed_matmul 4-bit {name} M={m}: "
+                    f"torch._weight_int4pack_mm {extra['library_ms']:.4f} ms (graph) against K7 "
+                    f"{k7:.4f} ms: K7 {'no slower' if k7 <= extra['library_ms'] else 'SLOWER'}; "
+                    f"rel_rms against K7 {extra['library_rel_rms']:.3e}")
+    for name in ("int8_matmul", "packed_matmul"):
+        rs = rec.b32[name]
+        log(f"[kernels] {name} at the B = 32 step's linears, M = 32 / 64 (the tile): "
+            f"{sum(r['ms'] for r in rs):.4f} ms summed over {len(rs)} calls against a bound of "
+            f"{sum(r['bound_ms'] for r in rs):.4f} ms")
 
 
 def int4pack_library(rec: Record, x, wq, s, b, got, k7_ms: float, copies=None,
@@ -1791,12 +2029,12 @@ def _clone_state(state: dict) -> dict:
 
 
 # The 0.6B frame loops and the pre-quantized 1.7B one are teacher-forced
-# over their first 24 frames, for the script's time (the plain K1 / K2
+# over their first 16 frames, for the script's time (the plain K1 / K2
 # steps cost ~0.3 s a frame). None of 96 reached a window trim or the
 # ring's wrap at 0.6B (the 1.7b phase's frames 186-231 do); the W8A8 drift
 # grows with the steps, so the shorter run reads less of it (3.5e-2 at
 # most over 96 at 0.6B).
-TF_FRAMES = 24
+TF_FRAMES = 16
 # The K3 and mixed pipelines' frames: host-bound at ~0.15-0.26 s a frame
 HOST_BOUND_FRAMES = 4
 
@@ -2343,8 +2581,8 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
     bytes; K3's and K7's launches the capture recorded and the M of each
     (k3_per_step, k3_m, k7_per_step, k7_m: M -> launches a step); wall ms a
     step by graph replay (20 replays ended by a sync) and by the eager step
-    (1 step); device ms a step of each (profiler: 1 replay, 1 eager step);
-    device kernels a step."""
+    (1 step); device ms a step of the graph (profiler: 1 replay) and, at
+    the widest width, of the eager step (1 step); device kernels a step."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
@@ -2390,28 +2628,35 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
         def eager_step():
             srv.lockstep_step(p, cp, eager, temps, statics, True)
 
+        def dev_ms(v):
+            return f"{v:.3f} ms" if v > 0 else "not measured (the profiler saw no device time)"
+
         check_pool(g, label)
         r = {"capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
              "graph_ms": wall(g.replay, 20), "eager_ms": wall(eager_step, 1),
              "graph_events_ms": _events_ms(lambda: [g.replay() for _ in range(20)]) / 20}
         # one step a window: the profiler's host work on ~12,000 kernel
         # records a step is most of this function's time
-        r["graph_device_ms"], r["kernels"] = device(g.replay, 1, top=8 if b == 8 else 0)
-        r["eager_device_ms"], r["eager_kernels"] = device(eager_step, 1)
+        r["graph_device_ms"], r["kernels"] = device(g.replay, 1, top=8 if b in (8, 32) else 0)
+        # the eager step's device time at the widest width only: its window
+        # holds ~24,000 records (each kernel and its launch), a few seconds
+        # of the profiler's host work at every width (the graph's is the
+        # serving path's, profiled at each)
+        eager_dev = "not profiled at this width"
+        if b == max(widths):
+            r["eager_device_ms"], r["eager_kernels"] = device(eager_step, 1)
+            eager_dev = (f"{dev_ms(r['eager_device_ms'])} in {r['eager_kernels']:.0f} device "
+                         "kernels")
         r["frames_per_s"] = b / r["graph_ms"] * 1e3
         for k, name in (("k3", "int8_matmul"), ("k7", "packed_matmul")):
             r[f"{k}_per_step"] = g.step_launches[srv._COUNTED.index(counters()[name][0])]
             r[f"{k}_m"] = m_per_step(calls[name])
 
-        def dev_ms(v):
-            return f"{v:.3f} ms" if v > 0 else "not measured (the profiler saw no device time)"
-
         log(f"[{label}] lockstep step B={b} (T=0.85): graph {r['graph_ms']:.3f} ms wall, "
             f"{r['graph_events_ms']:.3f} ms by events over 20 replays, device "
             f"{dev_ms(r['graph_device_ms'])} in {r['kernels']:.0f} device kernels; eager "
-            f"{r['eager_ms']:.3f} ms wall, device {dev_ms(r['eager_device_ms'])} in "
-            f"{r['eager_kernels']:.0f} device kernels; capture {r['capture_s']:.3f} s, graph "
-            f"pool {r['pool_bytes']} bytes; {r['frames_per_s']:.1f} frames/s; K3 launches "
+            f"{r['eager_ms']:.3f} ms wall, device {eager_dev}; capture {r['capture_s']:.3f} s, "
+            f"graph pool {r['pool_bytes']} bytes; {r['frames_per_s']:.1f} frames/s; K3 launches "
             f"a step {r['k3_per_step']} (M: launches {r['k3_m']}), K7 {r['k7_per_step']} "
             f"(M: launches {r['k7_m']}); "
             f"{time.perf_counter() - t_width:.1f} s to measure ({card}, bf16)")
@@ -2421,21 +2666,21 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
     return out
 
 
-def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving"):
-    """B = 8 at temperature 0: a chunk of graph replays against the same
-    steps run eagerly from a copy of the state: the same frames and state,
-    bit for bit (the same kernels on the same inputs). Returns the
+def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving", b: int = 8):
+    """B = b (_texts(b)) at temperature 0: a chunk of graph replays against
+    the same steps run eagerly from a copy of the state: the same frames and
+    state, bit for bit (the same kernels on the same inputs). Returns the
     frames."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
 
     statics = _statics(pl, steps)
-    state = _serving_state(pl, SERVE_TEXTS, statics)
+    state = _serving_state(pl, _texts(b), statics)
     eager = srv._clone(state)
     frames, _, _, state = srv.decode_chunk_serving(pl.params, pl.cp_params, state, 0.0, statics)
     p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
-    temps = torch.zeros(len(SERVE_TEXTS), device=eager["logits"].device)
+    temps = torch.zeros(b, device=eager["logits"].device)
     ref = []
     for _ in range(steps):
         srv.lockstep_step(p, cp, eager, temps, statics, False)
@@ -2443,7 +2688,7 @@ def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving"):
     ref = torch.stack(ref, dim=1)
     worst, same = _state_diff(state, eager)
     codes_equal = bool(torch.equal(frames, ref))
-    log(f"[{label}] graph vs eager, B=8, {steps} steps at temperature 0: frames "
+    log(f"[{label}] graph vs eager, B={b}, {steps} steps at temperature 0: frames "
         f"{'equal' if codes_equal else 'DIFFER'}; state: integer arrays "
         f"{'equal' if same else 'DIFFER'}, float arrays rel RMS max {worst:.3e} "
         f"({'bit for bit' if worst == 0.0 else 'not bit for bit'}) ({card})")
@@ -2454,9 +2699,10 @@ def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving"):
 
 
 def batch_vs_single(pl, card: str, frames, label: str = "serving", pl32=None) -> dict:
-    """B = 8 against B = 1, teacher-forced over the graph run's frames: the
-    talker logits after each step of streams 0 and 6 (the shortest and the
-    longest text) at B = 1 against the same stream's at B = 8. With `pl32`
+    """B = len(frames) (_texts(B): 8, or 32) against B = 1, teacher-forced
+    over the graph run's frames: the talker logits after each step of
+    streams 0 and 6 (the shortest and the longest text), and at B > 8 the
+    last, at B = 1 against the same stream's at B. With `pl32`
     (fp32_twin(pl)), BATCH_ROUNDING's two checks: the same comparison on
     the twin at TOL["float32"], then the bf16 one at the derived bound.
     Returns held_against_single's figures ("bound": the bf16 bound held;
@@ -2465,16 +2711,18 @@ def batch_vs_single(pl, card: str, frames, label: str = "serving", pl32=None) ->
     steps = int(valid.long().cumprod(0).sum())
     if steps < 4:
         raise SystemExit(f"[{label}] only {steps} steps where every stream emitted")
+    b = frames.shape[0]
+    texts, rows = _texts(b), (0, 6) if b <= 8 else (0, 6, b - 1)
     ref, fp32 = None, None
     if pl32 is not None:
         ref, statics = {}, _statics(pl32, steps)
         fp32 = held_against_single(
-            pl32, card, label, statics, _serving_state(pl32, SERVE_TEXTS, statics),
-            {j: _serving_state(pl32, SERVE_TEXTS[j:j + 1], statics) for j in (0, 6)},
+            pl32, card, label, statics, _serving_state(pl32, texts, statics),
+            {j: _serving_state(pl32, texts[j:j + 1], statics) for j in rows},
             frames[:, :steps], tol=TOL["float32"], keep=ref)
     statics = _statics(pl, steps)
-    wide = _serving_state(pl, SERVE_TEXTS, statics)
-    singles = {j: _serving_state(pl, SERVE_TEXTS[j:j + 1], statics) for j in (0, 6)}
+    wide = _serving_state(pl, texts, statics)
+    singles = {j: _serving_state(pl, texts[j:j + 1], statics) for j in rows}
     out = held_against_single(pl, card, label, statics, wide, singles, frames[:, :steps],
                               ref=ref)
     out["fp32"] = fp32
@@ -2643,33 +2891,45 @@ def held_against_single(pl, card: str, label: str, statics, wide, singles: dict,
 
 
 SERVING_VOCODER = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
+SERVE_TOKENS = 48  # frames a stream in serving_runs (few, for the script's time)
 
 
 def serving_runs(pl, card: str, label: str, temps, streams,
                  need=("int8_matmul",) + SERVING_VOCODER,
                  idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
-                       "pre_transformer_fused")):
-    """The counted run of batched serving: generate_many on 8 texts at each
-    temperature of `temps`, generate_many_stream on each (texts,
-    batch_size) of `streams` (the 8 through 8 slots; 6 through 4 admit 2
-    mid-flight), each output checked; the kernels of `need` launched and
-    those of `idle` not (the megakernel configuration's weights: K3 in the
-    text projections, K4-K6 and the blocks' upsample); the graphs' pools.
+                       "pre_transformer_fused"), texts=SERVE_TEXTS,
+                 max_tokens: int = SERVE_TOKENS, stream_tokens: int = SERVE_TOKENS,
+                 min_rows: int = 0):
+    """The counted run of batched serving: generate_many on `texts` (the 8
+    serving texts) at each temperature of `temps` (max_tokens frames),
+    generate_many_stream on each (texts, batch_size) of `streams` (the 8
+    through 8 slots; 6 through 4 admit 2 mid-flight; stream_tokens frames),
+    each output checked; generate_many's vocoder rows (chunked_decode's one
+    decode_frames call) at least `min_rows`, and every vocoder call of a
+    stream [batch_size, 16, 26]; the kernels of `need` launched and those
+    of `idle` not (the megakernel configuration's weights: K3 in the text
+    projections, K4-K6 and the blocks' upsample); the graphs' pools.
     Returns (launch counts of the run, metrics)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
     from qwen3_tts_tpu_torch.models import serving as srv
+    from qwen3_tts_tpu_torch.models import vocoder as voc
 
     spf, m = pl._samples_per_frame, {}
     kept, filt = _counting(gen_mod)
     admit, admits = srv.admit_stream, []
+    decode, vocoded = voc.decode_frames, []
 
     def counting_admit(*args, **kwargs):
         admits.append(args[1])
         return admit(*args, **kwargs)
 
-    srv.admit_stream = counting_admit
+    def recording_decode(params, codes, cfg):
+        vocoded.append(tuple(codes.shape))
+        return decode(params, codes, cfg)
+
+    srv.admit_stream, voc.decode_frames = counting_admit, recording_decode
     t_run = time.perf_counter()
     try:
         torch.cuda.synchronize()
@@ -2677,30 +2937,36 @@ def serving_runs(pl, card: str, label: str, temps, streams,
         graphs_before = sum(len(v) for v in srv.graphs(pl.params).values())
         for temp in temps:
             kept.clear()
+            vocoded.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs = pl.generate_many(list(SERVE_TEXTS), "aiden", temperature=temp,
-                                    max_tokens=96, seed=0)
+            outs = pl.generate_many(list(texts), "aiden", temperature=temp,
+                                    max_tokens=max_tokens, seed=0)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            ok = (len(kept) == 8 and all(n > 0 for n in kept)
+            rows = vocoded[0][0] if len(vocoded) == 1 else -1
+            ok = (len(kept) == len(texts) and all(n > 0 for n in kept)
                   and all(len(o) == n * spf and np.isfinite(o).all()
-                          for o, n in zip(outs, kept)))
+                          for o, n in zip(outs, kept)) and rows >= min_rows)
             audio_s = sum(len(o) for o in outs) / pl.sample_rate
             m[f"generate_many_rtf_t{temp}"] = secs / audio_s
-            log(f"[{label}] generate_many, 8 texts, T={temp}: {kept} valid frames, {secs:.3f} s "
-                f"for {audio_s:.2f} s of audio, serving RTF {secs / audio_s:.4f}, "
-                f"{sum(kept) / secs:.1f} frames/s with the vocoder {'ok' if ok else 'FAIL'} "
-                f"({card}, bf16)")
+            m[f"generate_many_rows_t{temp}"] = rows
+            log(f"[{label}] generate_many, {len(texts)} texts, T={temp}, max_tokens "
+                f"{max_tokens}: {kept} valid frames, the vocoder's calls {vocoded} ({rows} rows in "
+                f"one call, at least {min_rows} asked), {secs:.3f} s for {audio_s:.2f} s of "
+                f"audio, serving RTF {secs / audio_s:.4f}, {sum(kept) / secs:.1f} frames/s with "
+                f"the vocoder {'ok' if ok else 'FAIL'} ({card}, bf16)")
             if not ok:
                 raise SystemExit(f"generate_many output is wrong at T={temp}")
-        for texts, width in streams:
+        for stream_texts, width in streams:
             admits.clear()
-            first, got = {}, {i: [] for i in range(len(texts))}
+            vocoded.clear()
+            first, got = {}, {i: [] for i in range(len(stream_texts))}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for i, ch in pl.generate_many_stream(list(texts), "aiden", temperature=0.85,
-                                                 max_tokens=96, batch_size=width, seed=0):
+            for i, ch in pl.generate_many_stream(list(stream_texts), "aiden", temperature=0.85,
+                                                 max_tokens=stream_tokens, batch_size=width,
+                                                 seed=0):
                 if len(ch.samples) and i not in first:
                     first[i] = time.perf_counter() - t0
                 got[i].append(ch)
@@ -2719,16 +2985,21 @@ def serving_runs(pl, card: str, label: str, temps, streams,
                     raise SystemExit(f"[{label}] text {i}: not one final chunk, or no audio")
             m[f"stream_rtf_b{width}"] = secs / audio_s
             m[f"stream_first_audio_b{width}"] = [first[i] for i in sorted(first)]
-            log(f"[{label}] generate_many_stream, {len(texts)} texts, batch_size={width}: "
+            windows = sorted(set(vocoded))
+            log(f"[{label}] generate_many_stream, {len(stream_texts)} texts, batch_size={width}: "
                 f"{len(admits)} admitted mid-flight, {secs:.3f} s for {audio_s:.2f} s of audio, "
-                f"serving RTF {secs / audio_s:.4f}; first audio per text (s): "
+                f"serving RTF {secs / audio_s:.4f}; {len(vocoded)} vocoder calls of "
+                f"{windows}; first audio per text (s): "
                 + ", ".join(f"{first[i]:.3f}" for i in sorted(first)) + f" ({card}, bf16)")
             if width == 4 and len(admits) < 2:
                 raise SystemExit(f"[{label}] {len(admits)} admissions; expected at least 2")
+            if windows != [(width, 16, 26)]:
+                raise SystemExit(f"[{label}] the stream's vocoder windows are {windows}, not "
+                                 f"[{width}, 16, 26]")
         launches = read_counts()
     finally:
         gen_mod.filter_valid_frames = filt
-        srv.admit_stream = admit
+        srv.admit_stream, voc.decode_frames = admit, decode
     check_counts(label, launches, need=need, idle=idle)
     pool = srv.graphs(pl.params)
     for key, gs in pool.items():
@@ -2744,7 +3015,7 @@ def serving_runs(pl, card: str, label: str, temps, streams,
 
 
 def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
-                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 4, 8),
+                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 4, 8, 16, 32),
                   pl32=None, w8r: bool = True):
     """Batched serving on the megakernel configuration's weights (the
     megakernels idle: the batched path runs the `w8r` product at M = B):
@@ -2766,6 +3037,39 @@ def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
     return launches, m
 
 
+# B = 32, the JAX package's serving batch (bench.py's SERVE_BATCH):
+# generate_many runs MANY_32_TOKENS frames a stream, past chunked_decode's
+# 100-frame chunk, so a stream that runs that long decodes two 110-frame
+# rows, and its one vocoder call holds up to 64 rows, past the 39 that K6's
+# old grid cap took (MIN_ROWS_32 asked); generate_many_stream runs
+# STREAM_32_TOKENS frames through [32, 16, 26] windows
+MANY_32_TOKENS, MIN_ROWS_32, STREAM_32_TOKENS = 120, 40, 48
+
+
+def phase_serving_32(pl, card: str, label: str = "serving-32", pl32=None):
+    """The `w8r` configuration at B = 32, on the pipeline phase's model:
+    serving_runs' counted run of generate_many on 32 texts (_texts(32)) at
+    T = 0.85 with at least MIN_ROWS_32 vocoder rows in its one vocoder call,
+    and generate_many_stream of the 32 at batch_size=32; then, outside it,
+    the `w8r` product at M = 32, the B = 32 graph bit for bit its eager step,
+    and B = 32 against B = 1 teacher-forced over 8 steps (`pl32`: the fp32
+    twin's BATCH_ROUNDING checks). (The step's times at B = 32 are
+    phase_serving's.) Returns (launch counts of the counted run, metrics)."""
+    texts = _texts(32)
+    t_part = time.perf_counter()
+    launches, m = serving_runs(pl, card, label, temps=(0.85,), streams=((texts, 32),),
+                               texts=texts, max_tokens=MANY_32_TOKENS,
+                               stream_tokens=STREAM_32_TOKENS, min_rows=MIN_ROWS_32)
+    t_run = time.perf_counter()
+    m["w8r_product"] = w8r_product(pl, card, m=32)
+    frames = graph_vs_eager(pl, card, label=label, b=32)
+    t_tf = time.perf_counter()
+    m["batch_vs_single"] = batch_vs_single(pl, card, frames, label, pl32)
+    log(f"[{label}] counted run {t_run - t_part:.1f} s; w8r product, graph against eager "
+        f"{t_tf - t_run:.1f} s; B = 32 against B = 1 {time.perf_counter() - t_tf:.1f} s")
+    return launches, m
+
+
 # The `w8r` product against the fp32 product it replaced, and with TF32
 # allowed against not: exact operands, so only fp32 sum order separates
 # them (1.4-2.5e-7 on the card); a product that dropped x's third bf16 part
@@ -2773,10 +3077,10 @@ def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
 TOL_W8R = 1e-6
 
 
-def w8r_product(pl, card: str) -> dict:
+def w8r_product(pl, card: str, m: int = 8) -> dict:
     """The `w8r` product (fp32 GEMMs of bf16-valued parts; no precision
     flag read or written) against the product it replaced (the fp32 GEMM
-    of x, TF32 off as main() sets it) at a lockstep step's shapes, M = 8:
+    of x, TF32 off as main() sets it) at a lockstep step's shapes, M = m:
     talker layer 0's linears, the codec head and the code predictor's
     layer 0 on bf16 x (one part, the same GEMM: bit for bit), and its
     group-0 lm head on fp32 x (three parts). Then, on every shape, fp32 x
@@ -2807,9 +3111,9 @@ def w8r_product(pl, card: str) -> dict:
     out = {"vs_old": 0.0, "fp32_vs_old": 0.0, "tf32_on": 0.0, "ms": 0.0, "old_ms": 0.0}
     for name, entry, dt in cases:
         k = entry["w8r"].shape[1]
-        x = torch.randn(8, 1, k, device="cuda", generator=gen).to(dt)
+        x = torch.randn(m, 1, k, device="cuda", generator=gen).to(dt)
         err = rel_rms(lin._w8r_linear(entry, x).float(), old(entry, x).float())
-        xf = torch.randn(8, 1, k, device="cuda", generator=gen)
+        xf = torch.randn(m, 1, k, device="cuda", generator=gen)
         exact = lin._w8r_linear(entry, xf)
         err32 = rel_rms(exact, old(entry, xf))
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -2823,21 +3127,21 @@ def w8r_product(pl, card: str) -> dict:
             out[key] = max(out[key], v)
         out["ms"] += ms
         out["old_ms"] += oms
-        log(f"[serving] w8r product {name} {tuple(entry['w8r'].shape)} x {dt}: rel RMS "
+        log(f"[serving] w8r product M={m} {name} {tuple(entry['w8r'].shape)} x {dt}: rel RMS "
             f"against the fp32 (TF32 off) product {err:.3e}; fp32 x (not bf16-valued): "
             f"against it {err32:.3e}, TF32 allowed against not {tf32:.3e}; {ms:.4f} ms "
             f"({how}) against {oms:.4f} ms ({ohow}) ({card})")
     log(f"[serving] w8r product: worst rel RMS against the old product {out['vs_old']:.3e} "
         f"(fp32 x not bf16-valued: {out['fp32_vs_old']:.3e}), TF32 allowed against not "
         f"{out['tf32_on']:.3e} (tol {TOL_W8R:g}); summed {out['ms']:.4f} ms against "
-        f"{out['old_ms']:.4f} ms at M = 8 ({card})")
+        f"{out['old_ms']:.4f} ms at M = {m} ({card})")
     if not max(out["vs_old"], out["fp32_vs_old"], out["tf32_on"]) <= TOL_W8R:
         raise SystemExit("the w8r product disagrees with the fp32 product")
     return out
 
 
-# The service phase: a burst of 8 requests of BURST_TOKENS frames each (the
-# serving cell's 96) into the idle batch; then, while two long requests
+# The service phase: a burst of 8 requests of BURST_TOKENS frames each into
+# the idle batch; then, while two long requests
 # keep the batch running, 4 staggered arrivals (one sampled), a client that
 # hangs up after its first audio, an OpenAI-style pcm request and a
 # /tts_many of 2 texts. Each text's
@@ -2853,7 +3157,7 @@ SERVICE_TEXTS = (
     "The museum opens its new wing next week.",
     "Thank you, we will be with you shortly.",
 )
-BURST_TOKENS = 96
+BURST_TOKENS = 48  # few, for the script's time
 LATE_TEXTS = ("A late arrival takes a freed slot.", "A sampled request joins later.",
               "The third late arrival.", "Last of the late arrivals.")
 
@@ -2894,16 +3198,19 @@ def _pcm_ok(data: bytes, spf: int) -> tuple[bool, int]:
     return bool(len(pcm) and len(pcm) % spf == 0 and np.abs(pcm).max() > 0), len(pcm)
 
 
-def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl32=None):
-    """The always-on service over HTTP on localhost (server.serve at B = 8,
-    warmup=True): a burst of 8 streamed requests at temperature 0 into the
+def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl32=None,
+                  batch_size: int = 8, burst_tokens: int = BURST_TOKENS, tf_rows=None):
+    """The always-on service over HTTP on localhost (server.serve at B =
+    batch_size, warmup=True): a burst of batch_size streamed requests
+    (SERVICE_TEXTS in turn, burst_tokens frames) at temperature 0 into the
     idle batch; then (`mixed`), while two long requests keep the batch
     running, 4 staggered arrivals (one at 0.85), a client that hangs up
     after its first audio, an OpenAI-style pcm request and a /tts_many of 2
     texts beside the busy service. Checks every
     response, the /stats identities after the drain, that the traffic
     captured no graph of the service's keys, the launch counts, and each
-    greedy burst stream teacher-forced against B = 1 on its own frames (a
+    greedy burst stream (those of `tf_rows`, when given) teacher-forced
+    against B = 1 on its own frames (a
     smoke tool records them: a wrapped filter_valid_frames hands the
     service worker's raw frames to a recording _RowPacker); with `pl32`
     (fp32_twin(pl)) beside the twin's prefill of the same burst (twin_rows),
@@ -2938,12 +3245,12 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         keys_before = set(pool)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        httpd = server.serve(pl, port=0, batch_size=8, warmup=True)
+        httpd = server.serve(pl, port=0, batch_size=batch_size, warmup=True)
         warm_s = time.perf_counter() - t0
         svc, port = httpd.tts_service, httpd.server_address[1]
         ours = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
-                if k[4] == svc.statics}
-        log(f"[{label}] serve(batch_size=8, warmup=True): {warm_s:.2f} s; graphs of the "
+                if k[4] == svc.statics and k[0] == batch_size}
+        log(f"[{label}] serve(batch_size={batch_size}, warmup=True): {warm_s:.2f} s; graphs of the "
             f"service's keys: " + ", ".join(f"B={k[0]} capacity={k[1]} trailing={k[2]} "
                                             f"sampled={k[5]} captured in {gs[0][1]:.3f} s"
                                             for k, gs in ours.items())
@@ -2966,8 +3273,9 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         # the burst alone, into the idle batch
         t_burst = time.perf_counter()
         threads = [go(f"burst{i}", "/tts?stream=1", {
-            "text": SERVICE_TEXTS[i], "speaker": "aiden", "temperature": 0.0,
-            "max_tokens": BURST_TOKENS, "seed": 100 + i}) for i in range(8)]
+            "text": SERVICE_TEXTS[i % len(SERVICE_TEXTS)], "speaker": "aiden",
+            "temperature": 0.0, "max_tokens": burst_tokens, "seed": 100 + i})
+            for i in range(batch_size)]
         for th in threads:
             th.join(timeout=600)
         # two long requests keep the batch running; once they decode, the
@@ -3045,15 +3353,18 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
     m["warmup_s"] = warm_s
     m["burst_first_audio_s"] = firsts
     m["late_first_audio_s"] = [outs[f"late{i}"]["first_s"] for i in range(4 if mixed else 0)]
-    burst_s = max(outs[f"burst{i}"]["end"] for i in range(8)) - t_burst
+    burst_s = max(outs[f"burst{i}"]["end"] for i in range(batch_size)) - t_burst
     m["burst_rtf"] = burst_s / burst_audio_s
     m["burst_frames_per_s"] = burst_frames / burst_s
-    log(f"[{label}] burst of 8 streamed requests into the idle batch (T=0, max_tokens "
-        f"{BURST_TOKENS}): "
+    m["burst_first_audio_min_median_max_s"] = [min(firsts), float(np.median(firsts)),
+                                               max(firsts)]
+    log(f"[{label}] burst of {batch_size} streamed requests into the idle batch (T=0, "
+        f"max_tokens {burst_tokens}): "
         f"{burst_s:.3f} s for {burst_audio_s:.2f} s of audio, serving RTF "
         f"{m['burst_rtf']:.4f}, {m['burst_frames_per_s']:.1f} frames/s; first PCM byte "
         f"over HTTP per request (s): " + ", ".join(f"{x:.3f}" for x in firsts)
-        + f" ({card}, bf16)")
+        + f"; min {min(firsts):.3f}, median {np.median(firsts):.3f}, max {max(firsts):.3f} "
+        f"({card}, bf16)")
     if mixed:
         log(f"[{label}] staggered arrivals into the running batch (two requests of 120 "
             f"frames decoding): first PCM byte (s): "
@@ -3068,7 +3379,7 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         raise SystemExit(f"[{label}] /stats after the drain breaks its identities: {stats}")
     # no capture of the service's keys after warmup; /tts_many's own keys
     after = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
-             if k[4] == svc.statics}
+             if k[4] == svc.statics and k[0] == batch_size}
     new = {k: len(pool[k]) for k in set(pool) - keys_warm}
     log(f"[{label}] graphs of the service's keys after the traffic: "
         f"{'unchanged' if after == ours else 'CHANGED'}; keys captured by /tts_many beside "
@@ -3080,34 +3391,38 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
                  idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
                        "pre_transformer_fused"))
     # each greedy burst stream, teacher-forced against B = 1
-    burst = sorted((r for r in raw if 100 <= getattr(r, "seed", -1) < 108), key=lambda r: r.seed)
-    if len(burst) != 8:
-        raise SystemExit(f"[{label}] recorded {len(burst)} burst streams of 8")
+    burst = sorted((r for r in raw if 100 <= getattr(r, "seed", -1) < 100 + batch_size),
+                   key=lambda r: r.seed)
+    if len(burst) != batch_size:
+        raise SystemExit(f"[{label}] recorded {len(burst)} burst streams of {batch_size}")
     streams = [np.concatenate(raw[r]) for r in burst]
     steps = min(8, min(len(f) for f in streams))
     frames = torch.from_numpy(np.stack([f[:steps] for f in streams]).astype(np.int64)).cuda()
     wide = svc._prefill_bootstrap(dict(enumerate(burst)))
-    singles = {j: svc._prefill(r) for j, r in enumerate(burst)}
+    singles = {j: svc._prefill(r) for j, r in enumerate(burst)
+               if tf_rows is None or j in tf_rows}
     ref, t_tf = None, time.perf_counter()
     if pl32 is not None:
         ref = twin_rows(pl32, svc.statics, _service_bootstrap(pl32, svc, burst), frames)
     m["batch_vs_single"] = held_against_single(pl, card, label, svc.statics, wide, singles,
                                                frames, emitted=True, ref=ref)
-    log(f"[{label}] B = 8 against B = 1: {time.perf_counter() - t_tf:.1f} s")
+    log(f"[{label}] B = {batch_size} against B = 1: {time.perf_counter() - t_tf:.1f} s")
     return launches, m
 
 
 def _service_bootstrap(pl, svc, burst: list):
     """The full-B prefill svc._prefill_bootstrap makes of `burst` (slot j:
     burst[j], speaker aiden, its text the SERVICE_TEXTS entry its seed
-    names), on pl's trees: prompts padded to svc's buckets, svc's statics."""
+    names, in turn), on pl's trees: prompts padded to svc's buckets, svc's
+    statics."""
     import torch
 
     from qwen3_tts_tpu_torch import service as service_mod
     from qwen3_tts_tpu_torch.models import prompt as prompt_mod
 
     pds = [prompt_mod.assemble_prompt_padded(
-        pl.params, pl.config, pl.tokenizer, SERVICE_TEXTS[r.seed - 100], speaker="aiden",
+        pl.params, pl.config, pl.tokenizer, SERVICE_TEXTS[(r.seed - 100) % len(SERVICE_TEXTS)],
+        speaker="aiden",
         prompt_bucket=svc.prompt_bucket, trailing_bucket=svc.trailing_bucket) for r in burst]
     lengths, totals = zip(*(prompt_mod.pd_lengths(pd) for pd in pds))
     return service_mod._prefill_rows(
@@ -3155,10 +3470,12 @@ def tree_launches(pl, name: str) -> int:
 
 def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None,
                  tf_steps: int = 16, projection: dict | None = None,
-                 every_linear: bool = True):
-    """16 lockstep steps at B = 8 from one graph on a tree whose quantized
-    linears run K3 or K7 (`name`): at M = 8 (the code predictor's first
-    pass at 16). The counts are set to 0 before the graph's warm-up and
+                 every_linear: bool = True, b: int = 8):
+    """16 lockstep steps at B = b (8, or 32) from one graph on a tree whose
+    quantized linears run K3 or K7 (`name`): at M = b (the code predictor's
+    first pass at 2b); past M0 (b = 32) every call on the tile, whose
+    kernels alone are counted by name. The counts are set to 0 before the
+    graph's warm-up and
     capture and read after the steps: the wrapper counts the warm-up's and
     the capture's calls, twice the launches the capture recorded (the M of
     each call is recorded), tree_launches a step, and with `every_linear`
@@ -3167,15 +3484,15 @@ def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None
     recorded kernels without the wrapper: the kernel's device kernels are
     counted by name (QMM_NAMES) in a profile of 5 replays and must be the
     capture's launches each. `projection`: the M -> launches a step that
-    small_to_mtp_projection's calls must show. Then the step's times at B = 8
-    and B = 8 against B = 1 over the first `tf_steps` steps (`pl32`:
+    small_to_mtp_projection's calls must show. Then the step's times at B = b
+    and B = b against B = 1 over the first `tf_steps` steps (`pl32`:
     batch_vs_single's fp32 twin). Returns (the counts, metrics)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
 
     statics = _statics(pl, 16)
-    state = _serving_state(pl, SERVE_TEXTS, statics)
+    state = _serving_state(pl, _texts(b), statics)
     torch.cuda.synchronize()
     reset_counts()
     with kernel_rows() as calls:
@@ -3193,31 +3510,34 @@ def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None
     launched = g.step_launches[srv._COUNTED.index(counters()[name][0])]
     expect = tree_launches(pl, name)
     every = k3_step_launches(pl.config) if every_linear else expect
-    replayed = replayed_kernels(g, 5, name, label)
+    tile = b > counters()[name][0].M0
+    replayed = replayed_kernels(g, 5, name, label, tile=tile)
     proj = None
     if projection is not None:
         proj = m_per_step(calls[name], pl.cp_params["small_to_mtp_projection"][QMM_KEYS[name]])
     ok = (launches[name] == 2 * launched > 0 and launched == expect == every
-          and replayed == 5 * launched and bool((frames[..., 0] >= 0).all()) and 8 in hist
+          and replayed == 5 * launched and bool((frames[..., 0] >= 0).all()) and b in hist
           and proj == projection)
     kern = "K3" if name == "int8_matmul" else "K7"
-    log(f"[{label}] 16 lockstep steps at B=8 (T=0.85) from one graph: {secs * 1e3:.1f} ms, "
+    log(f"[{label}] 16 lockstep steps at B={b} (T=0.85) from one graph: {secs * 1e3:.1f} ms, "
         f"{secs / 16 * 1e3:.3f} ms a step; {kern}'s wrapper {launches[name]} calls in the "
         f"warm-up and the capture ({launched} a step, expected {expect} from the tree"
         + (f" and {every}, every linear" if every_linear else "") + f"; M of a "
         f"step's launches: {hist}"
         + ("" if projection is None else f"; small_to_mtp_projection's: {proj}, expected "
-           f"{projection}") + f"); {kern} kernels in a profile of 5 replays {replayed} "
+           f"{projection}") + f"); {kern} {'tile ' if tile else ''}kernels in a profile of 5 "
+        f"replays {replayed} "
         f"(expected {5 * launched}); graph captured in {g.capture_s:.3f} s, pool "
         f"{g.pool_bytes} bytes {'ok' if ok else 'FAIL'} ({card}, bf16)")
     if not ok:
-        raise SystemExit(f"[{label}] the lockstep steps did not run {kern} at M = 8 in every "
+        raise SystemExit(f"[{label}] the lockstep steps did not run {kern} at M = {b} in every "
                          "replay")
     check_counts(label, launches, need=(name,), idle=tuple(k for k in KERNELS if k != name))
     m = {"per_step": launched, "m": hist, "replayed": replayed, "projection_m": proj,
-         "steps": step_times(pl, card, label, widths=(8,))}
+         "steps": step_times(pl, card, label, widths=(b,))}
     # B = 8 runs the kernel at M = 8 (the GEMV where M0 >= 8, else the tile),
-    # B = 1 at M = 1: the same bound as the `w8r` serving step
+    # B = 32 the tile, B = 1 the GEMV at M = 1: the same bound as the `w8r`
+    # serving step
     m["batch_vs_single"] = batch_vs_single(pl, card, frames[:, :tf_steps], label, pl32)
     return launches, m
 
@@ -3229,12 +3549,12 @@ QMM_NAMES = {"int8_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<8,"),
              "packed_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<[2346],")}
 
 
-def replayed_kernels(g, n: int, name: str, label: str) -> int:
+def replayed_kernels(g, n: int, name: str, label: str, tile: bool = False) -> int:
     """K3's or K7's (`name`) device kernels in a torch.profiler window of n
-    replays of graph g. A window short of n times the capture's launches is
-    taken again, up to five windows, as profiled_kernels does (a profiler
-    window can lose records, more often late in the script); the last
-    window's count is returned."""
+    replays of graph g (`tile`: the tile's kernels only). A window short of
+    n times the capture's launches is taken again, up to five windows, as
+    profiled_kernels does (a profiler window can lose records, more often
+    late in the script); the last window's count is returned."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
@@ -3245,7 +3565,8 @@ def replayed_kernels(g, n: int, name: str, label: str) -> int:
             for _ in range(n):
                 g.replay()
             torch.cuda.synchronize()
-        names = [k for k in device_kernels(prof) if QMM_NAMES[name].search(k)]
+        names = [k for k in device_kernels(prof) if QMM_NAMES[name].search(k)
+                 and (not tile or "qt_qmm_tile_kernel" in k)]
         got = len(names)
         if got >= want:
             log(f"[{label}] {name} kernels in {n} replays by name: "
@@ -3446,10 +3767,12 @@ def batched_chunk(pl, card: str) -> tuple[dict, dict]:
     return launches, m
 
 
-def phase_verify(card: str) -> tuple[dict, dict]:
-    """The checkpoint tools at full width: write_golden_model_dir at
-    Qwen3TTSConfig.standard() (the default decoder, the full-width speaker
-    and audio encoders, widths 4 / 6 / 8, group 64, seed 0); the audit
+def phase_verify(card: str, d: str, writer: "DirWriter") -> tuple[dict, dict]:
+    """The checkpoint tools at full width on `d`, written by
+    write_golden_model_dir at Qwen3TTSConfig.standard() (the default
+    decoder, the full-width speaker and audio encoders, widths 4 / 6 / 8,
+    group 64, seed 0; DirWriter's "golden" job, waited for in the timer's
+    "write" stage); the audit
     script must pass on it; collect_report's exact report on the card
     (fp32, TF32 off, kernels off) saved as the golden; the production report
     (default configuration, bf16) must pass tpu-bf16 and fail cpu-fp32,
@@ -3477,7 +3800,6 @@ def phase_verify(card: str) -> tuple[dict, dict]:
     from qwen3_tts_tpu_torch.io import checkpoint as ckpt
     from qwen3_tts_tpu_torch.io import safetensors_io, verify
     from qwen3_tts_tpu_torch.models import vocoder as voc
-    from qwen3_tts_tpu_torch.testing import write_golden_model_dir
     from qwen3_tts_tpu_torch.utils.postprocess import sanitize_samples
     from qwen3_tts_tpu_torch.utils.profiling import PhaseTimer, trace
 
@@ -3485,10 +3807,9 @@ def phase_verify(card: str) -> tuple[dict, dict]:
     timer, m, total = PhaseTimer(), {}, {}
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as d:
+    with contextlib.nullcontext(d):
         with timer.phase("write"):
-            write_golden_model_dir(d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(),
-                                   widths=(4, 6, 8), group_size=64, seed=0)
+            m["write_s"] = writer.wait(d, label)["s"]
         with timer.phase("audit"):  # the script, run in this process
             rc, out = _run_script(f"{root}/scripts/torch_audit_checkpoint.py", [d])
         keys = [ln.strip() for ln in out.splitlines() if ln.startswith(("dense", "quant"))]
@@ -3906,9 +4227,9 @@ def phase_train(card: str) -> tuple[dict, dict]:
 # tp: tensor-parallel inference on two ranks that share the card
 # ---------------------------------------------------------------------------
 
-TP_FRAMES = 12  # the single stream's greedy frames (few, for the script's time)
-TP_CHUNK = 6  # the serving cycle's chunk: two chunks, park / admit, one more
-TP_SERVICE_TOKENS = 24
+TP_FRAMES = 8  # the single stream's greedy frames (few, for the script's time)
+TP_CHUNK = 4  # the serving cycle's chunk: two chunks, park / admit, one more
+TP_SERVICE_TOKENS = 12
 TP_TIMED_FRAMES = 8
 
 
@@ -4641,7 +4962,7 @@ def decoded_frames(gen_mod):
         gen_mod.decode_step = step
 
 
-def phase_1_7b(card: str, floors: tuple[float, float], d: str):
+def phase_1_7b(card: str, floors: tuple[float, float], d: str, write_s: float):
     """The 1.7B model (Qwen3TTSConfig.standard_1_7b(): talker hidden 2048,
     intermediate 6144, the 1024-wide code predictor behind
     small_to_mtp_projection), random weights from seed 0 in bf16, full
@@ -4657,15 +4978,15 @@ def phase_1_7b(card: str, floors: tuple[float, float], d: str):
     across the window's trims and the ring's wrap (TF_1_7B); a profile of
     8 frames; K3 and K7 at the 1.7B linears (qmm_1_7b) and M0's sweep over
     the 1.7B shapes, logged beside the wrappers' M0. `floors`: the empty
-    launch's cold floor (plain, writing), from the kernels phase; `d`: an
-    empty directory for the model dir, which the serving-1.7b phase reads
-    again. Returns (launch counts, metrics, the 1.7B Record, the swept M0s,
-    the loaded pipeline, which the serving-1.7b phase serves)."""
+    launch's cold floor (plain, writing), from the kernels phase; `d`: the
+    1.7B model dir (written from seed 0 by DirWriter in `write_s` seconds),
+    which the serving-1.7b phase reads again. Returns (launch counts,
+    metrics, the 1.7B Record, the swept M0s, the loaded pipeline, which the
+    serving-1.7b phase serves)."""
     import torch
 
     import qwen3_tts_tpu_torch as qt
     from qwen3_tts_tpu_torch.models import generate as gen_mod
-    from qwen3_tts_tpu_torch.testing import write_model_dir
 
     t_phase = time.perf_counter()
     rec = Record("1.7b")
@@ -4675,12 +4996,9 @@ def phase_1_7b(card: str, floors: tuple[float, float], d: str):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     vocoder = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
-    t0 = time.perf_counter()
-    write_model_dir(d, cfg, qt.TokenizerDecoderConfig(), seed=0)
-    write_s = time.perf_counter() - t0
-    log(f"[1.7b] wrote a random-weight 1.7B model dir (hidden {cfg.hidden_size}, "
+    log(f"[1.7b] a random-weight 1.7B model dir (hidden {cfg.hidden_size}, "
         f"intermediate {cfg.intermediate_size}, code predictor "
-        f"{cfg.code_predictor_config.hidden_size} through small_to_mtp_projection) in "
+        f"{cfg.code_predictor_config.hidden_size} through small_to_mtp_projection), written in "
         f"{write_s:.1f} s")
     with decoded_frames(gen_mod) as steps:
         pl, launches, metrics = run_pipeline(
@@ -4938,11 +5256,12 @@ def phase_mixed_1_7b(d: str, card: str):
 PREQUANT_1_7B_FRAMES = 96  # generate and generate_stream of the prequant-1.7b phase
 
 
-def phase_prequant_1_7b(d: str, card: str, int8_resident: int):
+def phase_prequant_1_7b(q: str, card: str, int8_resident: int, written: dict):
     """A pre-quantized 4-bit group-64 1.7B dir (MLX's layout) on the default
-    configuration: a copy of the 1.7b phase's dir `d` packed by
+    configuration: `q`, a copy of the 1.7b phase's dir packed by
     testing._pack_talker_weights (every talker and code-predictor linear
-    and table). generate and generate_stream of PREQUANT_1_7B_FRAMES frames
+    and table; DirWriter's "packed-1.7b" job, its seconds `written`).
+    generate and generate_stream of PREQUANT_1_7B_FRAMES frames
     with K1 and K2 built from the packed weights and launched once a
     decoded frame, K7 in the text projection only, K3 and K2g's kernel
     idle; K7 at the text projection's shapes; K1 / K2 teacher-forced over
@@ -4955,17 +5274,11 @@ def phase_prequant_1_7b(d: str, card: str, int8_resident: int):
     import torch
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
-    from qwen3_tts_tpu_torch.testing import _pack_talker_weights
 
     t_phase = time.perf_counter()
     label, runs, m = "prequant-1.7b", {}, {}
-    with tempfile.TemporaryDirectory() as q:
-        t0 = time.perf_counter()
-        shutil.copytree(d, q, dirs_exist_ok=True)
-        m["copy_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        _pack_talker_weights(q, (4,), 64)
-        m["pack_s"] = time.perf_counter() - t0
+    with contextlib.nullcontext(q):
+        m["copy_s"], m["pack_s"] = written["copy_s"], written["pack_s"]
         log(f"[{label}] a copy of the 1.7b dir ({m['copy_s']:.1f} s) packed to 4 bits, group 64 "
             f"(MLX's layout) in {m['pack_s']:.1f} s")
         with decoded_frames(gen_mod) as steps:
@@ -5004,6 +5317,86 @@ def phase_prequant_1_7b(d: str, card: str, int8_resident: int):
     return {k: sum(r[k] for r in runs.values()) for k in KERNELS}, runs, m
 
 
+# ---- model dirs written beside the phases ----
+
+
+def _write_dirs(jobs: list) -> None:
+    """A child process's work: each (kind, path, source) job in turn, each
+    marked done by `path`.written (JSON: its seconds). Kinds: "prequant"
+    (the 0.6B dir pre-quantized to 4 bits, group 64), "modes" (0.6B with
+    both encoders), "golden" (verify's 0.6B dir packed at 4 / 6 / 8 bits
+    with both encoders), "1.7b" (the 1.7B dir), "packed-1.7b" (a copy of the
+    1.7B dir `source`, written by an earlier job, packed to 4 bits, group
+    64, by testing._pack_talker_weights). Host work only: no CUDA."""
+    import qwen3_tts_tpu_torch as qt
+    from qwen3_tts_tpu_torch.testing import (
+        _pack_talker_weights,
+        write_golden_model_dir,
+        write_model_dir,
+        write_prequantized_model_dir,
+    )
+
+    dec = qt.TokenizerDecoderConfig()
+    for kind, path, source in jobs:
+        t0, times = time.perf_counter(), {}
+        if kind == "prequant":
+            write_prequantized_model_dir(path, qt.Qwen3TTSConfig.standard(), dec, widths=(4,),
+                                         group_size=64)
+        elif kind == "modes":
+            write_model_dir(path, qt.Qwen3TTSConfig.standard(), dec, seed=0, with_encoders=True,
+                            tts_model_type="base")
+        elif kind == "golden":
+            write_golden_model_dir(path, qt.Qwen3TTSConfig.standard(), dec, widths=(4, 6, 8),
+                                   group_size=64, seed=0)
+        elif kind == "1.7b":
+            write_model_dir(path, qt.Qwen3TTSConfig.standard_1_7b(), dec, seed=0)
+        elif kind == "packed-1.7b":
+            shutil.copytree(source, path, dirs_exist_ok=True)
+            times["copy_s"] = time.perf_counter() - t0
+            _pack_talker_weights(path, (4,), 64)
+            times["pack_s"] = time.perf_counter() - t0 - times["copy_s"]
+        else:
+            raise ValueError(f"unknown dir kind {kind}")
+        times["s"] = time.perf_counter() - t0
+        with open(path + ".part", "w") as f:
+            json.dump(times, f)
+        os.replace(path + ".part", path + ".written")
+
+
+class DirWriter:
+    """The later phases' model dirs, written by one spawned child process
+    (_write_dirs) while the earlier phases run on the card: host work beside
+    the card's, so a phase that reads a dir waits only for what is left of
+    its writing. wait(path) returns the job's seconds; close() ends the
+    child."""
+
+    def __init__(self, jobs: list):
+        import multiprocessing as mp
+
+        self.proc = mp.get_context("spawn").Process(target=_write_dirs, args=(jobs,),
+                                                    daemon=True)
+        self.proc.start()
+
+    def wait(self, path: str, label: str) -> dict:
+        t0 = time.perf_counter()
+        while not os.path.exists(path + ".written"):
+            if not self.proc.is_alive() and not os.path.exists(path + ".written"):
+                raise SystemExit(f"[{label}] the dir writer ended (exit code "
+                                 f"{self.proc.exitcode}) without writing {path}")
+            time.sleep(0.2)
+        with open(path + ".written") as f:
+            times = json.load(f)
+        log(f"[{label}] its model dir written beside the earlier phases in {times['s']:.1f} s "
+            f"(a child process); waited {time.perf_counter() - t0:.1f} s for it")
+        return times
+
+    def close(self) -> None:
+        self.proc.join(timeout=60)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+
+
 def main() -> int:
     import torch
 
@@ -5019,7 +5412,7 @@ def main() -> int:
 
     import qwen3_tts_tpu_torch as qt
     from qwen3_tts_tpu_torch.models import generate as gen_mod
-    from qwen3_tts_tpu_torch.testing import write_model_dir, write_prequantized_model_dir
+    from qwen3_tts_tpu_torch.testing import write_model_dir
 
     t_start = time.perf_counter()
     card = card_line()
@@ -5029,15 +5422,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    _build.build(force=True)
-    _build.lib()
-    log(f"[build] nvcc sm_90a build of {len(_build.sources())} sources in parallel: "
-        f"{time.perf_counter() - t0:.1f} s -> {_build.build_dir()}")
+    # nvcc builds the kernels (one process a source) while this process
+    # writes the 0.6B dir; then a child process writes the later phases'
+    # dirs (DirWriter) while the phases before them run
+    t0, built = time.perf_counter(), {}
+
+    def build() -> None:
+        try:
+            _build.build(force=True)
+            built["s"] = time.perf_counter() - t0
+        except BaseException as e:  # raised again below
+            built["error"] = e
+
+    build_thread = threading.Thread(target=build)
+    build_thread.start()
 
     rec = Record()
-    results, launches = {}, {}
-    marks = [time.perf_counter()]
+    results, launches, runs32 = {}, {}, {}
+    marks = []
 
     def mark(name: str) -> None:
         """Logs the seconds since the last mark: the script's time by phase."""
@@ -5048,12 +5450,24 @@ def main() -> int:
     megakernels = ("talker_step", "cp_frame")
     sampler = ("gumbel_sample",)  # its kernel: K2 draws inside its own launch
     main_dir = tempfile.TemporaryDirectory()  # the 0.6B dir, kept for the tp phase
+    later = tempfile.TemporaryDirectory()  # the dirs DirWriter writes
+    dirs = {k: os.path.join(later.name, k)
+            for k in ("prequant", "modes", "golden", "1.7b", "packed-1.7b")}
     with contextlib.nullcontext(main_dir.name) as d:
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         talker_dense, cp_dense, _ = write_model_dir(
             d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(), seed=0)
         log(f"[pipeline] wrote a random-weight 0.6B model dir in "
+            f"{time.perf_counter() - t1:.1f} s (beside the build)")
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+        _build.lib()
+        log(f"[build] nvcc sm_90a build of {len(_build.sources())} sources in parallel: "
+            f"{built['s']:.1f} s -> {_build.build_dir()}; with the dir's writing "
             f"{time.perf_counter() - t0:.1f} s")
+        writer = DirWriter([(k, dirs[k], dirs["1.7b"]) for k in dirs])
+        marks.append(time.perf_counter())
         phase_megakernels(rec, card, talker_dense, cp_dense)
         del talker_dense, cp_dense
         mark("megakernels")
@@ -5075,9 +5489,16 @@ def main() -> int:
         mark("pipeline")
         launches["serving"], results["serving"] = phase_serving(pl, card)
         mark("serving")
+        twin = fp32_twin(pl)
+        runs32["w8r"], results["serving_32"] = phase_serving_32(pl, card, pl32=twin)
+        mark("serving-32")
         launches["service"], results["service"] = phase_service(pl, card)
         mark("service")
-        del pl
+        runs32["service"], results["service_32"] = phase_service(
+            pl, card, "service-32", mixed=False, pl32=twin, batch_size=32,
+            burst_tokens=STREAM_32_TOKENS, tf_rows=(0, 31))
+        mark("service-32")
+        del pl, twin
         torch.cuda.empty_cache()
 
         off = qt.Qwen3TTSPipelineConfiguration(use_talker_megakernel=False,
@@ -5096,6 +5517,10 @@ def main() -> int:
         profile_frames(pl, "k3-pipeline", card, steps=2)
         launches["serving_k3"], results["k3_serving"] = serving_step(pl, card, "k3-serving")
         mark("k3-pipeline, k3-serving")
+        runs32["k3_step"], results["k3_serving_32"] = serving_step(
+            pl, card, "k3-serving-32", pl32=fp32_twin(pl), tf_steps=8, b=32)
+        graph_vs_eager(pl, card, label="k3-serving-32", b=32)
+        mark("k3-serving-32")
         del pl
         torch.cuda.empty_cache()
 
@@ -5124,15 +5549,16 @@ def main() -> int:
         mark("mixed-pipeline")
         launches["mixed_serving"], results["mixed_serving"] = phase_mixed_serving(pl, card)
         mark("mixed-serving")
+        runs32["mixed_step"], results["mixed_serving_32"] = serving_step(
+            pl, card, "mixed-serving-32", "packed_matmul", pl32=fp32_twin(pl), tf_steps=8, b=32)
+        graph_vs_eager(pl, card, label="mixed-serving-32", b=32)
+        mark("mixed-serving-32")
         del pl
         torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        write_prequantized_model_dir(d, qt.Qwen3TTSConfig.standard(),
-                                     qt.TokenizerDecoderConfig(), widths=(4,), group_size=64)
-        log(f"[prequant-pipeline] wrote a random-weight 0.6B model dir pre-quantized to 4 bits, "
-            f"group 64, in {time.perf_counter() - t0:.1f} s")
+    with contextlib.nullcontext(dirs["prequant"]) as d:
+        writer.wait(d, "prequant-pipeline")
+        log("[prequant-pipeline] a random-weight 0.6B model dir pre-quantized to 4 bits, group 64")
         pl, launches["prequant"], results["prequant"] = run_pipeline(
             card, d, "prequant-pipeline", None,
             need=megakernels + ("packed_matmul",) + vocoder, idle=sampler + ("int8_matmul",))
@@ -5143,17 +5569,14 @@ def main() -> int:
         del pl
         torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        write_model_dir(d, qt.Qwen3TTSConfig.standard(), qt.TokenizerDecoderConfig(), seed=0,
-                        with_encoders=True, tts_model_type="base")
-        log(f"[modes-pipeline] wrote a random-weight 0.6B model dir with the speaker encoder "
-            f"(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig()) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        mark("prequant-pipeline, writing the modes dir")
+    with contextlib.nullcontext(dirs["modes"]) as d:
+        writer.wait(d, "modes-pipeline")
+        log("[modes-pipeline] a random-weight 0.6B model dir with the speaker encoder "
+            "(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig())")
+        mark("prequant-pipeline")
         launches["modes"], results["modes"] = phase_modes(card, d)
         mark("modes-pipeline")
-    launches["verify"], results["verify"] = phase_verify(card)
+    launches["verify"], results["verify"] = phase_verify(card, dirs["golden"], writer)
     mark("verify")
     launches["tp"], results["tp"] = phase_tp(card, main_dir.name)
     mark("tp")
@@ -5162,8 +5585,10 @@ def main() -> int:
     mark("train")
     floors = (rec.rows["int8_matmul"]["floor_cold_ms"],
               rec.rows["int8_matmul"]["floor_store_cold_ms"])
-    with tempfile.TemporaryDirectory() as d:  # the 1.7B dir, read again by serving-1.7b
-        launches["1_7b"], results["1_7b"], rec17, m0_1_7b, pl = phase_1_7b(card, floors, d)
+    with contextlib.nullcontext(dirs["1.7b"]) as d:  # the 1.7B dir, read again by serving-1.7b
+        write_s = writer.wait(d, "1.7b")["s"]
+        launches["1_7b"], results["1_7b"], rec17, m0_1_7b, pl = phase_1_7b(card, floors, d,
+                                                                           write_s)
         mark("1.7b")
         (launches["serving_1_7b"], serving_1_7b_runs,
          results["serving_1_7b"]) = phase_serving_1_7b(pl, d, card,
@@ -5175,9 +5600,12 @@ def main() -> int:
          results["mixed_1_7b"]) = phase_mixed_1_7b(d, card)
         mark("mixed-1.7b")
         (launches["prequant_1_7b"], prequant_1_7b_runs,
-         results["prequant_1_7b"]) = phase_prequant_1_7b(d, card,
-                                                          results["1_7b"]["resident_bytes"])
+         results["prequant_1_7b"]) = phase_prequant_1_7b(
+            dirs["packed-1.7b"], card, results["1_7b"]["resident_bytes"],
+            writer.wait(dirs["packed-1.7b"], "prequant-1.7b"))
         mark("prequant-1.7b")
+    writer.close()
+    later.cleanup()
     log(f"[done] {time.perf_counter() - t_start:.1f} s; pipeline metrics "
         f"{json.dumps(results)}")
 
@@ -5220,6 +5648,10 @@ def main() -> int:
         row["launches_serving_1_7b"] = launches["serving_1_7b"][name]
         row["launches_serving_1_7b_by_run"] = {k: v[name] for k, v in serving_1_7b_runs.items()}
         row["launches_mixed_serving"] = launches["mixed_serving"][name]
+        row["launches_serving_32"] = sum(r[name] for r in runs32.values())
+        row["launches_serving_32_by_run"] = {k: v[name] for k, v in runs32.items()}
+        if name in rec.b32:  # K3, K7, K4, K5, K6, the upsample at B = 32's shapes
+            row["at_b32"] = rec.b32[name]
         for path, runs in (("mixed_1_7b", mixed_1_7b_runs), ("prequant_1_7b", prequant_1_7b_runs)):
             row[f"launches_{path}"] = launches[path][name]
             row[f"launches_{path}_by_run"] = {k: v[name] for k, v in runs.items()}

@@ -112,7 +112,7 @@ __global__ void __launch_bounds__(QT_NT) qt_gemm_kernel(const QtGemmArgs g) {
   __shared__ float Ws[QT_BK][QT_BN + 4];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * QT_BM, n0 = blockIdx.x * QT_BN;
+  const int m0 = blockIdx.x * QT_BM, n0 = blockIdx.y * QT_BN;
   const int K = g.taps * g.cin;
   float acc[4][4];
 #pragma unroll
@@ -172,7 +172,9 @@ __global__ void __launch_bounds__(QT_NT) qt_gemm_kernel(const QtGemmArgs g) {
 template <bool CONV, bool SNAKE>
 int qt_gemm_launch(const QtGemmArgs* g, void* stream) {
   if (g->M <= 0 || g->N <= 0) return 0;
-  dim3 grid((g->N + QT_BN - 1) / QT_BN, (g->M + QT_BM - 1) / QT_BM);
+  // row tiles on x (up to 2^31 - 1), column tiles on y (65,535 at most)
+  if ((g->N + QT_BN - 1) / QT_BN > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((g->M + QT_BM - 1) / QT_BM, (g->N + QT_BN - 1) / QT_BN);
   qt_gemm_kernel<CONV, SNAKE><<<grid, QT_NT, 0, (cudaStream_t)stream>>>(*g);
   return (int)cudaGetLastError();
 }

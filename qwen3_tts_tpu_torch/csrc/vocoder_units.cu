@@ -28,7 +28,10 @@
 // y stays fp32 in device memory (the last unit writes the input's dtype);
 // only the MMA operands are bf16.
 //
-// The conv: a block owns a BM x BN output tile inside one sequence. For
+// The conv: a block owns a BM x BN output tile inside one sequence; the
+// row tiles of all sequences lie on gridDim.x, so any row count launches
+// (on gridDim.y, 65,535 tiles, ~39 rows of 110 frames of block 3, was the
+// cap). For
 // each chunk of BK input channels it copies the strip of rows [t0 - 6d,
 // t0 + BM) of the operand into shared memory once (zero before the
 // sequence start: the causal padding), and the seven taps are seven MMAs
@@ -107,11 +110,19 @@ __global__ void __launch_bounds__(QtConvTile<BM, BN, TAPS>::NT)
 
   const int halo = (TAPS - 1) * g.dil;
   const int tiles = (g.S + BM - 1) / BM;
-  const int b = blockIdx.y / tiles;
-  const int p0 = (blockIdx.y % tiles) * BM;  // first output position in sequence b
+  // The grid is (row tiles of all sequences, column tiles). Block (x, y) is
+  // item y * gridDim.x + x in launch order, and item l is row tile l / nt,
+  // column tile l % nt: the nt column tiles of one row tile are adjacent
+  // items, so the blocks that read one strip of the operand run together
+  // (vocoder_kernels.conv_grid mirrors this map)
+  const int nt = gridDim.y;
+  const long long item = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const long long rt = item / nt;
+  const int b = (int)(rt / tiles);
+  const int p0 = (int)(rt % tiles) * BM;  // first output position in sequence b
   const int rows = min(BM, g.S - p0);
   const long long seq0 = (long long)b * g.S;
-  const int n0 = blockIdx.x * BN;
+  const int n0 = (int)(item % nt) * BN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp / WN) * 32, wn = (warp % WN) * 32;
   const int nchunks = (g.C + BK - 1) / BK;
@@ -211,25 +222,29 @@ __global__ void __launch_bounds__(QtConvTile<BM, BN, TAPS>::NT)
     }
 }
 
+// The grid (gx, gy) is the caller's (vocoder_kernels.conv_grid): it must be
+// (B * ceil(S / BM), ceil(N / BN)), the row tiles on x (up to 2^31 - 1)
+// and the column tiles on y (N / BN <= 12 here; the cap is 65,535).
 template <int BM, int BN, int TAPS>
-int qt_conv_launch(const QtConvArgs& g, cudaStream_t st) {
+int qt_conv_launch(const QtConvArgs& g, long long gx, long long gy, cudaStream_t st) {
   using Tl = QtConvTile<BM, BN, TAPS>;
+  if (gx != (long long)g.B * ((g.S + BM - 1) / BM) || gy != (g.N + BN - 1) / BN)
+    return (int)cudaErrorInvalidValue;
+  if (gx > 2147483647LL || gy > 65535) return (int)cudaErrorInvalidConfiguration;
   const cudaError_t e = cudaFuncSetAttribute(
       qt_conv_mma_kernel<BM, BN, TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const long long mt = (long long)g.B * ((g.S + BM - 1) / BM);
-  if (mt > 65535) return (int)cudaErrorInvalidConfiguration;
-  dim3 grid((g.N + BN - 1) / BN, (unsigned)mt);
-  qt_conv_mma_kernel<BM, BN, TAPS><<<grid, Tl::NT, Tl::SMEM, st>>>(g);
+  qt_conv_mma_kernel<BM, BN, TAPS><<<dim3((unsigned)gx, (unsigned)gy), Tl::NT, Tl::SMEM, st>>>(g);
   return (int)cudaGetLastError();
 }
 
 template <int TAPS>
-int qt_conv_dispatch(const QtConvArgs& g, int bm, int bn, cudaStream_t st) {
-  if (bm == 128 && bn == 128) return qt_conv_launch<128, 128, TAPS>(g, st);
-  if (bm == 128 && bn == 96) return qt_conv_launch<128, 96, TAPS>(g, st);
-  if (bm == 128 && bn == 64) return qt_conv_launch<128, 64, TAPS>(g, st);
-  if (bm == 64 && bn == 64) return qt_conv_launch<64, 64, TAPS>(g, st);
+int qt_conv_dispatch(const QtConvArgs& g, int bm, int bn, long long gx, long long gy,
+                     cudaStream_t st) {
+  if (bm == 128 && bn == 128) return qt_conv_launch<128, 128, TAPS>(g, gx, gy, st);
+  if (bm == 128 && bn == 96) return qt_conv_launch<128, 96, TAPS>(g, gx, gy, st);
+  if (bm == 128 && bn == 64) return qt_conv_launch<128, 64, TAPS>(g, gx, gy, st);
+  if (bm == 64 && bn == 64) return qt_conv_launch<64, 64, TAPS>(g, gx, gy, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -272,16 +287,17 @@ extern "C" int qt_units_gemm(const QtGemmArgs* g, void* stream) {
                      : qt_gemm_launch<false, true>(g, stream);
 }
 
-// One bf16 tensor-core conv launch with tile (bm, bn): taps 7 (dil <= 9),
-// 2 (the block upsample) or 1; C % 8 == 0, N % 8 == 0.
-extern "C" int qt_units_conv(const QtConvArgs* g, int bm, int bn, void* stream) {
+// One bf16 tensor-core conv launch with tile (bm, bn) on grid (gx, gy):
+// taps 7 (dil <= 9), 2 (the block upsample) or 1; C % 8 == 0, N % 8 == 0.
+extern "C" int qt_units_conv(const QtConvArgs* g, int bm, int bn, long long gx, long long gy,
+                             void* stream) {
   if (g->B <= 0 || g->S <= 0) return 0;
   if (g->N % 8 || g->C % 8 || g->dil < 1 || g->dil > QT_CV_DMAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (g->taps == 7) return qt_conv_dispatch<7>(*g, bm, bn, st);
-  if (g->taps == 2) return qt_conv_dispatch<2>(*g, bm, bn, st);
-  if (g->taps == 1) return qt_conv_dispatch<1>(*g, bm, bn, st);
+  if (g->taps == 7) return qt_conv_dispatch<7>(*g, bm, bn, gx, gy, st);
+  if (g->taps == 2) return qt_conv_dispatch<2>(*g, bm, bn, gx, gy, st);
+  if (g->taps == 1) return qt_conv_dispatch<1>(*g, bm, bn, gx, gy, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -126,7 +126,7 @@ _SIGNATURES = {
     "qt_up_persistent": [_P, _I, _I, _P],
     "qt_up_persistent_grid": [_I, _P],
     "qt_units_gemm": [ctypes.POINTER(GemmArgs), _P],
-    "qt_units_conv": [_P, _I, _I, _P],
+    "qt_units_conv": [_P, _I, _I, _LL, _LL, _P],
     "qt_units_snake": [_P, _I, _P, _P, _P, _LL, _I, _P],
     "qt_units_tail": [_P, _P, _P, _P, _LL, _I, _I, _P],
     "qt_talker_step": [_P, _P],

@@ -48,6 +48,31 @@ def conv_tile(b: int, s: int, n: int, sms: int) -> tuple[int, int]:
     return 64, 64
 
 
+# CUDA's limits on a grid's x and y dimensions
+GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535
+
+
+def conv_grid(b: int, s: int, n: int, bm: int, bn: int):
+    """qt_conv_mma_kernel's launch grid for b sequences of s rows, n
+    columns and tile (bm, bn), and its block map: ((gx, gy), tile) with
+    gx = b * ceil(s / bm) row tiles on x and gy = ceil(n / bn) column tiles
+    on y; tile(x, y) -> (sequence, first position, first column) of block
+    (x, y), integers or numpy arrays. Block (x, y) is item y * gx + x in
+    launch order and item l is row tile l // gy, column tile l % gy, as
+    the kernel computes them: a row tile's column tiles run together."""
+    tiles = -(-s // bm)
+    gx, gy = b * tiles, -(-n // bn)
+    if gx > GRID_X_MAX or gy > GRID_Y_MAX:
+        raise ValueError(f"K6's grid ({gx}, {gy}) exceeds CUDA's ({GRID_X_MAX}, {GRID_Y_MAX})")
+
+    def tile(x, y):
+        item = y * gx + x
+        rt = item // gy
+        return rt // tiles, (rt % tiles) * bm, (item % gy) * bn
+
+    return (gx, gy), tile
+
+
 def _snake_params(p: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """(exp(alpha), 1 / (exp(beta) + 1e-9)) in fp32."""
     a = torch.exp(p["alpha"].float())
@@ -138,6 +163,7 @@ def _conv(a, w, *, b, s, taps, dil, bias, res=None, out=None, act=None, snake=No
     when out is given, act = bf16(SnakeBeta `snake` of it) when act is."""
     c, n = a.shape[-1], w.shape[1]
     bm, bn = conv_tile(b, s, n, persistent.sm_count(a.device))
+    (gx, gy), _ = conv_grid(b, s, n, bm, bn)
     args = ConvArgs(
         a=a.data_ptr(), w=w.data_ptr(), bias=bias.data_ptr(), res=_build.ptr(res),
         res_bf16=_build.is_bf16(res) if res is not None else 0, out=_build.ptr(out),
@@ -145,8 +171,8 @@ def _conv(a, w, *, b, s, taps, dil, bias, res=None, out=None, act=None, snake=No
         act_alpha=_build.ptr(snake[0]) if act is not None else None,
         act_binv=_build.ptr(snake[1]) if act is not None else None, act=_build.ptr(act),
         B=b, S=s, C=c, N=n, taps=taps, dil=dil)
-    _build.check(_build.lib().qt_units_conv(ctypes.addressof(args), bm, bn, _build.stream()),
-                 "qt_units_conv")
+    _build.check(_build.lib().qt_units_conv(ctypes.addressof(args), bm, bn, gx, gy,
+                                            _build.stream()), "qt_units_conv")
 
 
 def _units_mma(kp: dict, y: torch.Tensor) -> torch.Tensor:
