@@ -103,9 +103,10 @@ non-zero):
                 mid-flight); each lockstep step one CUDA graph replay; the
                 audio checked, K4, K5, K6, the blocks' upsample and K3 (text
                 projection) launched, K1 and K2 not; every stream vocoder
-                call [batch_size, 16, 26]; then the step at B = 1, 4, 8, 16,
-                32 by graph and eagerly (wall, device, capture s, graph
-                pool bytes, frames/s), the graph against the eager step at
+                call [batch_size, 16, 26]; then the step at B = 1, 8, 16 and
+                32 by graph and eagerly (wall; the graph's device time at
+                8 and 32, the eager step's at 32; capture s, graph pool
+                bytes, frames/s), the graph against the eager step at
                 temperature 0 (same frames and state), and B = 8 against
                 B = 1 teacher-forced (TOL_BATCH, no code-0 flip outside a
                 near-tie); the `w8r` product against the fp32 product it
@@ -119,19 +120,6 @@ non-zero):
                 `w8r` product at M = 32; the B = 32 graph bit for bit its
                 eager step; B = 32 against B = 1 teacher-forced over 8
                 steps beside the fp32 twin (BATCH_ROUNDING's checks)
-  service     - the always-on service over HTTP on localhost, on the same
-                model: server.serve(batch_size=8, warmup=True), then a burst
-                of 8 streamed 48-frame requests at temperature 0, 4 staggered
-                arrivals into the running batch (one at 0.85), a client
-                that hangs up after its first audio, a /v1/audio/speech pcm
-                request and a /tts_many of 2 texts beside the busy service;
-                every response well formed, /stats identities after the
-                drain (one cancel, no failure, no restart), the graphs of
-                the service's keys unchanged by the traffic, K3-K6 and the
-                blocks' upsample launched and K1 / K2 not, each burst
-                stream teacher-forced against B = 1 on its own frames;
-                first PCM byte per request, serving RTF and frames/s over
-                the burst, warmup seconds
   service-32  - server.serve(batch_size=32, warmup=True) on the same model:
                 a burst of 32 streamed requests of 48 frames at T = 0, every
                 response well formed, /stats identities after the drain, no
@@ -188,6 +176,35 @@ non-zero):
                 resident bytes, and K1, K2, K3, K4, K5, K6 and the blocks'
                 upsample launched,
                 K2g's kernel, K4a and K7 not
+  service-modes - the always-on service over HTTP on localhost with the
+                voice modes, on the modes-pipeline phase's pipeline (no
+                second load; its talker, code predictor and vocoder are the
+                pipeline phase's, the same seed): server.serve(batch_size=8,
+                warmup=True), then the mode burst into the idle batch
+                (testing.MODE_BURST: two VoiceDesign descriptions of different
+                token lengths, two CustomVoice requests, a speaker-embedding
+                clone and an ICL request from a 5 s clip of its VoiceDesign
+                audio sent as base64 WAV, an OpenAI-route request with
+                `instructions`, a built-in speaker; 48 streamed frames each
+                at temperature 0), then, while two long requests keep the
+                batch running, 4 staggered arrivals (one at 0.85), a client
+                that hangs up after its first audio, a /v1/audio/speech pcm
+                request and a /tts_many of 2 texts beside the busy service;
+                every response well formed, /stats identities after the
+                drain (one cancel, no failure, no restart), the graphs of
+                the service's keys unchanged by the traffic, K3-K6 and the
+                blocks' upsample launched and K1 / K2 not, each burst
+                stream teacher-forced against B = 1 with BATCH_ROUNDING's
+                checks (the fp32 twin's B = 8 against its B = 1 at
+                TOL["float32"], bf16 under the derived bound, near ties
+                judged on the twin's scores), the service's greedy graph
+                bit for bit its eager step on the burst's mixed batch;
+                first PCM byte per request and by mode, serving RTF and
+                frames/s over the burst, warmup seconds; an ICL
+                request on a 9 s clip (its prompt past the default 128-row
+                bucket) refused at submit with the JAX service's message,
+                then served by a service at the first prompt bucket that
+                holds it (ring capacity bucket + RING_SLACK)
   verify      - the checkpoint tools at full width: write_golden_model_dir
                 at 0.6B (packed at 4 / 6 / 8 bits, group 64, dense
                 stragglers, both encoders at full width); the audit script
@@ -253,13 +270,22 @@ non-zero):
                 and T = 0) against their plain versions at TOL_W8A8, their
                 plans and bit-identical repeats (the one-kernel check is
                 the megakernels phase's); the frame loop teacher-forced
-                over frames 186-231 (trims and the wrap); a profile of 8
+                over frames 216-231 (a trim and the wrap); a profile of 8
                 frames; K3 and K7 (4 and 6 bits) at every 1.7B linear and
                 the text projection at M = 1, 3, 8, 9, 16 and 114, and K3
                 and K7 4-bit at small_to_mtp_projection (2,048 -> 1,024) at M
                 = 1, 2, 8, 16 and 32, fp32 and bf16, warm and cold, K7's
                 4-bit calls beside torch._weight_int4pack_mm; M0's sweep over
-                the 1.7B shapes
+                the 1.7B shapes; the dir carries both encoders (the speaker
+                encoder's enc_dim 2048, the talker's width)
+  modes-1.7b  - every generation mode at 1.7B on the 1.7b phase's pipeline:
+                VoiceDesign, CustomVoice, a streamed VoiceDesign (first
+                audio), the 2048-wide x-vector of a 5 s clip and generate
+                with it, generate_icl on that clip's codes, 96 frames each;
+                RTF per mode, the encoders' seconds, K1 and K2 once a frame,
+                K3 (text projection) and K4-K6 and the upsample launched, K7
+                and K2g's kernel not; the x-vector against the card
+                machine's CPU run in fp32
   serving-1.7b - the 1.7B model batched, on the 1.7b phase's dir and loaded
                 pipeline (megakernel configuration's weights: the `w8r`
                 product at M = B, small_to_mtp_projection on K3):
@@ -267,19 +293,24 @@ non-zero):
                 generate_many_stream at batch_size=8, the audio checked, K3
                 (projection, text projection) and K4-K6 and the blocks'
                 upsample launched, K1, K2, K2g's kernel and K7 not; the step
-                at B = 1, 8 and 16 (wall, device, kernels, capture s, pool
-                bytes), K3 15 launches a step (the projection: M = 2B once,
-                then B), counted by name in a profile of 5 replays at B = 8;
+                at B = 1, 8 and 16 (wall, capture s, pool bytes; device
+                time and kernels at B = 8), K3 15 launches a step (the
+                projection: M = 2B once, then B), counted by name in a
+                profile of 5 replays at B = 8;
                 the graph bit for bit the eager step; B = 8 against B = 1
                 teacher-forced with BATCH_ROUNDING's checks (the same on an
                 fp32 twin of the tree at TOL["float32"], bf16 at the larger
                 of TOL_BATCH and the derived bound); the service over HTTP
-                (a burst of 8 streamed 48-frame requests at temperature 0,
-                first PCM byte, /stats identities, no capture after warmup,
-                each stream against B = 1 beside the twin's prefill of the
-                burst, near ties judged on its scores); then the K3
+                (the mode burst on a 5 s clip of the 1.7B model's own
+                VoiceDesign speech: 48 streamed frames each at temperature
+                0, first PCM byte by mode, /stats identities, no capture
+                after warmup, each stream against B = 1 beside the twin's
+                prefill of the burst, near ties
+                judged on its scores at the limit derived from the
+                rounding it measures, the greedy graph bit for bit its eager
+                step on the burst's mixed batch); then the K3
                 configuration from the same dir: generate and
-                generate_stream of 8 frames (K3's launches a decoded frame
+                generate_stream of 4 frames (K3's launches a decoded frame
                 beside the 0.6B figure), 16 lockstep steps at B = 8 from one
                 graph (443 K3 kernels a replay by name), the graph bit for
                 bit the eager step, B = 8 against B = 1 as above
@@ -307,8 +338,10 @@ non-zero):
                 bit for bit the eager step
 The line before the last is {"kernels": [...]} (each row with its launches on
 every path: "launches" on the pipeline phase, "launches_<path>" on the
-others, "launches_serving" on the serving runs, "launches_service" on
-the service's traffic, "launches_verify" on the verify phase and
+others, "launches_serving" on the serving runs, "launches_service_modes"
+on service-modes' traffic and its long reference, "launches_modes_1_7b"
+on the modes-1.7b phase's five runs, "launches_verify" on the verify
+phase and
 "launches_train" on the train phase, 0 for
 every kernel, and "launches_tp" on the tp phase's generate() on rank 0, "launches_1_7b" on the
 1.7b phase's generate() and generate_stream(), "launches_serving_1_7b" on the
@@ -2031,7 +2064,7 @@ def _clone_state(state: dict) -> dict:
 # The 0.6B frame loops and the pre-quantized 1.7B one are teacher-forced
 # over their first 16 frames, for the script's time (the plain K1 / K2
 # steps cost ~0.3 s a frame). None of 96 reached a window trim or the
-# ring's wrap at 0.6B (the 1.7b phase's frames 186-231 do); the W8A8 drift
+# ring's wrap at 0.6B (the 1.7b phase's frames 216-231 do); the W8A8 drift
 # grows with the steps, so the shorter run reads less of it (3.5e-2 at
 # most over 96 at 0.6B).
 TF_FRAMES = 16
@@ -2323,10 +2356,86 @@ LONG = ("The first sentence of this long text talks about the weather, which was
         "walk home along the river for their supper.")
 
 
+def _timed(fn):
+    """(fn(), its seconds between two device syncs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_audio(label: str, name: str, audio, spf: int, frames=None) -> None:
+    ok = (audio.dtype == np.float32 and len(audio) > 0 and bool(np.isfinite(audio).all())
+          and (frames is None or len(audio) == frames * spf))
+    if not ok:
+        raise SystemExit(f"[{label}] {name}: {len(audio)} samples, not the audio expected")
+
+
+def every_mode(pl, card: str, label: str, m: dict, frames: int = 96):
+    """The single-stream generation modes on a loaded pipeline with both
+    encoders, at the default temperature, seeded: VoiceDesign,
+    CustomVoice, a streamed VoiceDesign run (first audio), the speaker
+    embedding and the reference codes of a 5 s clip of the VoiceDesign
+    audio (tiled if shorter), generate with that embedding, generate_icl;
+    each `frames` frames, its audio checked (1,920 samples a frame, finite)
+    and its RTF, first audio and the encoders' seconds put in m. Returns
+    (the VoiceDesign audio, the 5 s clip, its speaker embedding, its
+    codes)."""
+    from qwen3_tts_tpu_torch.testing import REFERENCE_TRANSCRIPT
+
+    spf = pl._samples_per_frame
+    desc = "A warm, low narrator voice."
+
+    def rtf(name, fn):
+        audio, secs = _timed(fn)
+        _check_audio(label, name, audio, spf, frames)
+        m[f"{name}_rtf"] = secs / (len(audio) / 24000)
+        log(f"[{label}] {name}: {secs:.2f} s for {len(audio) / 24000:.2f} s of audio, "
+            f"RTF {m[f'{name}_rtf']:.3f} ({card})")
+        return audio
+
+    design = rtf("voice_design", lambda: pl.generate_voice_design(
+        TEXT, desc, max_tokens=frames, seed=0))
+    rtf("custom_voice", lambda: pl.generate_custom_voice(
+        TEXT, "aiden", "Speak cheerfully.", max_tokens=frames, seed=0))
+
+    t0 = time.perf_counter()
+    first, n = None, 0
+    for ch in pl.generate_stream_voice_design(TEXT, desc, max_tokens=frames, seed=0):
+        if first is None and len(ch.samples):
+            first = time.perf_counter() - t0
+        if len(ch.samples):
+            _check_audio(label, "stream chunk", ch.samples, spf,
+                         ch.token_range[1] - ch.token_range[0])
+        n += len(ch.samples)
+    m["stream_first_audio_s"], m["stream_rtf"] = first, (time.perf_counter() - t0) / (n / 24000)
+    log(f"[{label}] streamed VoiceDesign: first audio {first:.2f} s, RTF {m['stream_rtf']:.3f} "
+        f"({card})")
+
+    ref = np.resize(design, int(REF_S * 24000))  # a 5 s clip of generated speech
+    emb, m["speaker_encoder_s"] = _timed(lambda: pl.extract_speaker_embedding(ref))
+    codes, m["audio_encoder_s"] = _timed(lambda: pl.encode_reference_audio(ref))
+    log(f"[{label}] 5 s clip: speaker embedding {emb.shape} in {m['speaker_encoder_s']:.3f} s, "
+        f"reference codes {len(codes)} x {len(codes[0])} in {m['audio_encoder_s']:.3f} s "
+        f"({card}, fp32)")
+    if emb.shape != (pl.config.hidden_size,) or not np.isfinite(emb).all():
+        raise SystemExit(f"[{label}] the speaker embedding is {emb.shape}, not "
+                         f"({pl.config.hidden_size},) and finite")
+    rtf("speaker_embedding", lambda: pl.generate(TEXT, speaker_embedding=emb, max_tokens=frames,
+                                                 seed=0))
+    rtf("icl", lambda: pl.generate_icl(TEXT, REFERENCE_TRANSCRIPT, codes, max_tokens=frames,
+                                       seed=0))
+    return design, ref, emb, codes
+
+
 def phase_modes(card: str, d: str):
     """Every generation mode on the default configuration of a 0.6B dir
     with the speaker and audio encoders; returns (launch counts over the
-    whole phase, metrics)."""
+    whole phase, metrics, the loaded pipeline, which service-modes serves,
+    and its VoiceDesign audio)."""
     import torch
 
     import qwen3_tts_tpu_torch as qt
@@ -2339,31 +2448,17 @@ def phase_modes(card: str, d: str):
 
     label = "modes-pipeline"
     m: dict = {}
-    spf = 0  # samples per frame, from the loaded pipeline
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    def check_audio(name, audio, frames=None):
-        ok = (audio.dtype == np.float32 and len(audio) > 0 and bool(np.isfinite(audio).all())
-              and (frames is None or len(audio) == frames * spf))
-        if not ok:
-            raise SystemExit(f"[{label}] {name}: {len(audio)} samples, not the audio expected")
 
     def rtf(name, fn, frames=None):
-        audio, secs = timed(fn)
-        check_audio(name, audio, frames)
+        audio, secs = _timed(fn)
+        _check_audio(label, name, audio, spf, frames)
         m[f"{name}_rtf"] = secs / (len(audio) / 24000)
         log(f"[{label}] {name}: {secs:.2f} s for {len(audio) / 24000:.2f} s of audio, "
             f"RTF {m[f'{name}_rtf']:.3f}")
         return audio
 
     reset_counts()
-    pl, m["load_s"] = timed(lambda: qt.Qwen3TTSPipeline(d, device="cuda"))
+    pl, m["load_s"] = _timed(lambda: qt.Qwen3TTSPipeline(d, device="cuda"))
     spf = pl._samples_per_frame
     if not (pl.supports_voice_cloning and pl.supports_icl):
         raise SystemExit(f"[{label}] the encoders did not load")
@@ -2371,32 +2466,7 @@ def phase_modes(card: str, d: str):
     enc_bytes = resident_bytes(pl.speaker_encoder.params, pl.audio_encoder.params)
     log(f"[{label}] load {m['load_s']:.2f} s; resident {m['resident_bytes']} bytes, of which "
         f"the encoders {enc_bytes} (fp32)")
-    design = rtf("voice_design", lambda: pl.generate_voice_design(
-        TEXT, "A warm, low narrator voice.", max_tokens=96, seed=0), 96)
-    rtf("custom_voice", lambda: pl.generate_custom_voice(
-        TEXT, "aiden", "Speak cheerfully.", max_tokens=96, seed=0), 96)
-
-    t0 = time.perf_counter()
-    first, n = None, 0
-    for ch in pl.generate_stream_voice_design(TEXT, "A warm, low narrator voice.",
-                                              max_tokens=96, seed=0):
-        if first is None and len(ch.samples):
-            first = time.perf_counter() - t0
-        if len(ch.samples):
-            check_audio("stream chunk", ch.samples, ch.token_range[1] - ch.token_range[0])
-        n += len(ch.samples)
-    m["stream_first_audio_s"], m["stream_rtf"] = first, (time.perf_counter() - t0) / (n / 24000)
-    log(f"[{label}] streamed VoiceDesign: first audio {first:.2f} s, RTF {m['stream_rtf']:.3f}")
-
-    ref = design[: 5 * 24000]  # a 5 s clip of generated speech
-    emb, m["speaker_encoder_s"] = timed(lambda: pl.extract_speaker_embedding(ref))
-    codes, m["audio_encoder_s"] = timed(lambda: pl.encode_reference_audio(ref))
-    log(f"[{label}] 5 s clip: speaker embedding {emb.shape} in {m['speaker_encoder_s']:.3f} s, "
-        f"reference codes {len(codes)} x {len(codes[0])} in {m['audio_encoder_s']:.3f} s")
-    rtf("speaker_embedding", lambda: pl.generate(TEXT, speaker_embedding=emb, max_tokens=96,
-                                                 seed=0), 96)
-    rtf("icl", lambda: pl.generate_icl(TEXT, "The words of the reference clip.", codes,
-                                       max_tokens=96, seed=0), 96)
+    design, ref, emb, codes = every_mode(pl, card, label, m)
 
     from qwen3_tts_tpu_torch.models import generate as gen_mod
 
@@ -2408,7 +2478,7 @@ def phase_modes(card: str, d: str):
         kept.clear()
         with tempfile.TemporaryDirectory() as out_dir:
             path = f"{out_dir}/long.wav"
-            count, secs = timed(lambda: pl.generate_to_file(LONG, path, "aiden", seed=0))
+            count, secs = _timed(lambda: pl.generate_to_file(LONG, path, "aiden", seed=0))
             with open(path, "rb") as f:
                 samples, rate, channels = parse_wav(f.read())
         file_frames = list(kept)
@@ -2426,7 +2496,7 @@ def phase_modes(card: str, d: str):
     m["generate_to_file_rtf"] = secs / (count / 24000)
     log(f"[{label}] generate_to_file: {count} samples in {secs:.2f} s, RTF "
         f"{m['generate_to_file_rtf']:.3f}")
-    _, m["warmup_s"] = timed(pl.warmup)
+    _, m["warmup_s"] = _timed(pl.warmup)
     log(f"[{label}] warmup: {m['warmup_s']:.2f} s")
     launches = read_counts()
     check_counts(label, launches, need=("talker_step", "cp_frame", "int8_matmul",
@@ -2456,9 +2526,7 @@ def phase_modes(card: str, d: str):
     if not (emb_err <= 1e-4 and h_err <= 1e-4 and same >= 0.99):
         raise SystemExit("the encoders on the card disagree with their CPU run")
     m["codes_equal"] = same
-    del pl
-    torch.cuda.empty_cache()
-    return launches, m
+    return launches, m, pl, design
 
 
 SERVE_TEXTS = (
@@ -2576,13 +2644,16 @@ def _texts(b: int) -> tuple:
     return (SERVE_TEXTS * (-(-b // len(SERVE_TEXTS))))[:b]
 
 
-def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
+def step_times(pl, card: str, label: str, widths=(1, 4, 8), profiled=None,
+               eager_profiled: bool = False) -> dict:
     """The lockstep step at each batch width: graph capture s and pool
     bytes; K3's and K7's launches the capture recorded and the M of each
     (k3_per_step, k3_m, k7_per_step, k7_m: M -> launches a step); wall ms a
     step by graph replay (20 replays ended by a sync) and by the eager step
-    (1 step); device ms a step of the graph (profiler: 1 replay) and, at
-    the widest width, of the eager step (1 step); device kernels a step."""
+    (1 step); at each width of `profiled` (all when None) device ms a step
+    of the graph (profiler: 1 replay) and device kernels a step, and with
+    `eager_profiled` at the widest of them device ms of the eager step (1
+    step)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
@@ -2590,6 +2661,7 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
     out = {}
     statics = _statics(pl, 1)
     p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
+    profiled = widths if profiled is None else profiled
     for b in widths:
         t_width = time.perf_counter()
         state = _serving_state(pl, _texts(b), statics)
@@ -2636,14 +2708,17 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
              "graph_ms": wall(g.replay, 20), "eager_ms": wall(eager_step, 1),
              "graph_events_ms": _events_ms(lambda: [g.replay() for _ in range(20)]) / 20}
         # one step a window: the profiler's host work on ~12,000 kernel
-        # records a step is most of this function's time
-        r["graph_device_ms"], r["kernels"] = device(g.replay, 1, top=8 if b in (8, 32) else 0)
-        # the eager step's device time at the widest width only: its window
-        # holds ~24,000 records (each kernel and its launch), a few seconds
-        # of the profiler's host work at every width (the graph's is the
-        # serving path's, profiled at each)
+        # records a step is most of this function's time, so only the
+        # widths of `profiled` take one
+        r["graph_device_ms"], r["kernels"] = None, None
+        if b in profiled:
+            r["graph_device_ms"], r["kernels"] = device(g.replay, 1,
+                                                        top=8 if b in (8, 32) else 0)
+        # the eager step's device time at one width of one phase: its window
+        # holds ~24,000 records (each kernel and its launch), ~4 s of the
+        # profiler's host work
         eager_dev = "not profiled at this width"
-        if b == max(widths):
+        if eager_profiled and b == max(profiled):
             r["eager_device_ms"], r["eager_kernels"] = device(eager_step, 1)
             eager_dev = (f"{dev_ms(r['eager_device_ms'])} in {r['eager_kernels']:.0f} device "
                          "kernels")
@@ -2652,9 +2727,11 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
             r[f"{k}_per_step"] = g.step_launches[srv._COUNTED.index(counters()[name][0])]
             r[f"{k}_m"] = m_per_step(calls[name])
 
+        graph_dev = (f"{dev_ms(r['graph_device_ms'])} in {r['kernels']:.0f} device kernels"
+                     if b in profiled else "not profiled at this width")
         log(f"[{label}] lockstep step B={b} (T=0.85): graph {r['graph_ms']:.3f} ms wall, "
             f"{r['graph_events_ms']:.3f} ms by events over 20 replays, device "
-            f"{dev_ms(r['graph_device_ms'])} in {r['kernels']:.0f} device kernels; eager "
+            f"{graph_dev}; eager "
             f"{r['eager_ms']:.3f} ms wall, device {eager_dev}; capture {r['capture_s']:.3f} s, "
             f"graph pool {r['pool_bytes']} bytes; {r['frames_per_s']:.1f} frames/s; K3 launches "
             f"a step {r['k3_per_step']} (M: launches {r['k3_m']}), K7 {r['k7_per_step']} "
@@ -2666,17 +2743,21 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8)) -> dict:
     return out
 
 
-def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving", b: int = 8):
-    """B = b (_texts(b)) at temperature 0: a chunk of graph replays against
-    the same steps run eagerly from a copy of the state: the same frames and
-    state, bit for bit (the same kernels on the same inputs). Returns the
-    frames."""
+def graph_vs_eager(pl, card: str, steps: int = 8, label: str = "serving", b: int = 8,
+                   state=None, statics=None):
+    """B = b (_texts(b)) at temperature 0, or a given prefilled `state` of
+    `statics` (a service's burst: its chunk_steps steps): a chunk of graph
+    replays against the same steps run eagerly from a copy of the state:
+    the same frames and state, bit for bit (the same kernels on the same
+    inputs). Returns the frames."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
 
-    statics = _statics(pl, steps)
-    state = _serving_state(pl, _texts(b), statics)
+    if state is None:
+        statics = _statics(pl, steps)
+        state = _serving_state(pl, _texts(b), statics)
+    b, steps = state["logits"].shape[0], statics.chunk_steps
     eager = srv._clone(state)
     frames, _, _, state = srv.decode_chunk_serving(pl.params, pl.cp_params, state, 0.0, statics)
     p, cp = srv._drop_kernel(pl.params), srv._drop_kernel(pl.cp_params)
@@ -2781,113 +2862,166 @@ def _greedy_scores(state: dict, statics):
 # pair 0.35% apart in fp32 read 1.2% apart in bf16 (the 1.7B service
 # burst's step 6 on an H100, every stream: the fp32 B = 8 and B = 1 steps
 # both picked one code, the bf16 B = 8 step the other).
-def twin_rows(pl32, statics, wide, frames) -> dict:
-    """held_against_single's `ref` from one B-row state of the fp32 twin
-    (its rows agree with its B = 1 steps to ~2e-6: batch_vs_single's fp32
-    check), stepped by a ForcedStep, teacher-forced with frames [B, steps,
-    16]: by (row, step) each row's logits after the step, by ("scores",
-    row, step) its greedy scores before it."""
-    b, ref = frames.shape[0], {}
-    step = ForcedStep(pl32, wide, statics)
-    for i in range(frames.shape[1]):
-        scores = _greedy_scores(wide, statics).float()
-        for j in range(b):
-            ref["scores", j, i] = scores[j].clone()
-        step(frames[:, i])
-        for j in range(b):
-            ref[j, i] = wide["logits"][j].float().clone()
-    return ref
+def _gap_of_top(scores, a: int, w: int) -> float:
+    """|score a - score w| over the largest finite |score| (inf when w's
+    score is not finite)."""
+    import torch
 
+    if not bool(torch.isfinite(scores[w])):
+        return float("inf")
+    top = float(scores[torch.isfinite(scores)].abs().max())
+    return float((scores[a] - scores[w]).abs()) / top
 
 
 def _near_tie(scores, a: int, w: int) -> bool:
     """Scores a and w within NEAR_TIE of the largest finite score."""
+    return _gap_of_top(scores, a, w) <= NEAR_TIE
+
+
+# Beside the fp32 twin the near-tie limit is also derived from the rounding
+# measured at that step: the bf16 B = 1 run's largest error on any finite
+# score against the twin's, m. A bf16 run puts each score within about m of
+# the twin's, so two bf16 runs may order a pair differently only where the
+# twin's scores of the pair lie within 2m; the limit is the larger of
+# NEAR_TIE and 2m, both over the twin's largest score. (The 1.7B mode burst
+# on a clip of the 1.7B model's own speech, on an H100: a flip at 1.104% of
+# the top score, over NEAR_TIE, the fp32 twin's B = 8 and B = 1 agreeing
+# to 1.8e-6 with no flip.)
+def _rounding_tie(twin, bf16, a: int, w: int) -> tuple[bool, float, float]:
+    """(a near tie, the twin's gap of a and w over its top score, the
+    limit: max(NEAR_TIE, 2 max |bf16 - twin| over the top score))."""
     import torch
 
-    top = float(scores[torch.isfinite(scores)].abs().max())
-    gap = float((scores[a] - scores[w]).abs())
-    return bool(torch.isfinite(scores[w])) and gap <= NEAR_TIE * top
+    finite = torch.isfinite(twin) & torch.isfinite(bf16)
+    top = float(twin[finite].abs().max())
+    limit = max(NEAR_TIE, 2 * float((bf16.float() - twin)[finite].abs().max()) / top)
+    gap = _gap_of_top(twin, a, w)
+    return gap <= limit, gap, limit
 
 
 def held_against_single(pl, card: str, label: str, statics, wide, singles: dict, frames,
                         emitted: bool = False, tol: float = TOL_BATCH, keep=None,
                         ref=None) -> dict:
     """Steps the B = len(frames) state `wide` and the B = 1 states
-    `singles` (row -> state), each by a ForcedStep, teacher-forced with
-    frames [B, steps, 16], and holds each single's talker logits after
+    `singles` (row -> state) by ForcedSteps (the singles one after another
+    through one a state shape, each copied into its state), teacher-forced
+    with frames [B, steps, 16], and holds each single's talker logits after
     every step against its row of the wide ones: rel RMS <= tol, and a
-    code-0 argmax that differs only at a near-tie (the two scores within NEAR_TIE of the
-    largest score). `emitted` (greedy streams' own frames): also each
-    frame's code 0 against the greedy pick of its single's state before
-    that step, off only at a near-tie, so a frame the run computed or
-    routed wrongly fails. `keep` (a dict) receives each single's logits
-    after every step by (row, step) and its greedy scores before it by
+    code-0 argmax that differs only at a near-tie (the two scores within
+    NEAR_TIE of the largest score; beside a twin, _rounding_tie's limit).
+    `emitted` (greedy streams' own frames): also each frame's code 0
+    against the greedy pick of its single's state before that step, off
+    only at a near-tie, so a frame the run computed or routed wrongly fails.
+    `keep` (a dict) receives each single's logits after every step by
+    (row, step) and its greedy scores before it by
     ("scores", row, step); `ref`, such a dict from the same singles on an
-    fp32 twin of the tree (batch_vs_single, twin_rows), gives their
+    fp32 twin of the tree (batch_vs_single), gives their
     rounding error (rel RMS against it), the bound becomes the larger of
     tol and BATCH_ROUNDING times the largest one, and a near tie is judged
-    on the twin's scores of the two codes (twin_rows' note). Returns
+    on the twin's scores of the two codes (the note above _gap_of_top) at
+    the limit _rounding_tie derives from that step's rounding. Returns
     {"worst", "mean", "bound", "rounding" (None without ref), "flips",
-    "ties"}."""
+    "ties", "tie_gaps": each tie's (row, step, gap, limit)}."""
     import torch
+
+    from qwen3_tts_tpu_torch.models import serving as srv
 
     b, steps = frames.shape[:2]
     dt = "bf16" if wide["h_last"].dtype == torch.bfloat16 else "fp32"
     step_wide = ForcedStep(pl, wide, statics)
-    step_one = {j: ForcedStep(pl, one, statics) for j, one in singles.items()}
-    errs, flips, ties, rounding = [], 0, 0, []
-    picks, misses, miss_ties = 0, [], 0
+    wide_logits = []
     for i in range(steps):
-        for j, one in singles.items():
-            if not (emitted or keep is not None):
-                break
-            sc = _greedy_scores(one, statics)[0]
-            if keep is not None:
-                keep["scores", j, i] = sc.float().clone()
-            if emitted:
-                a, got = int(torch.argmax(sc)), int(frames[j, i, 0])
-                picks += 1
-                if a != got:
-                    if _near_tie(sc if ref is None else ref["scores", j, i], a, got):
-                        miss_ties += 1
-                    else:
-                        misses.append((j, i, got, a))
         step_wide(frames[:, i])
-        for j, one in singles.items():
-            step_one[j](frames[j:j + 1, i])
-            lg = one["logits"][0]
+        wide_logits.append(wide["logits"].clone())
+    del step_wide
+    def shapes(tree):
+        return tuple((k, shapes(v) if isinstance(v, dict) else tuple(v.shape))
+                     for k, v in tree.items())
+
+    # the singles one after another through one B = 1 graph a shape (their
+    # trailing buckets may differ), each copied into the state the graph
+    # was captured over (the same kernels, as serving.bind does)
+    graphs = {}
+    errs, flips, ties, rounding, far, by_row = [], 0, 0, [], [], {}
+    picks, misses, miss_ties, tie_gaps = 0, [], 0, []
+
+    def judged(bf16, twin, j, i, a, w) -> tuple[bool, float]:
+        """(a near tie, the gap) of codes a and w: on the bf16 scores at
+        NEAR_TIE without a twin, else on the twin's at _rounding_tie's limit."""
+        if twin is None:
+            return _near_tie(bf16, a, w), _gap_of_top(bf16, a, w)
+        tie, gap, limit = _rounding_tie(twin, bf16, a, w)
+        if tie:
+            tie_gaps.append((j, i, round(gap, 5), round(limit, 5)))
+        return tie, gap
+
+    for j, single in singles.items():
+        shape = shapes(single)
+        if shape not in graphs:
+            one = srv._clone(single)
+            graphs[shape] = one, ForcedStep(pl, one, statics)
+        one, step_one = graphs[shape]
+        srv._copy_into(one, single)
+        for i in range(steps):
+            if emitted or keep is not None:
+                sc = _greedy_scores(one, statics)[0]
+                if keep is not None:
+                    keep["scores", j, i] = sc.float().clone()
+                if emitted:
+                    a, got = int(torch.argmax(sc)), int(frames[j, i, 0])
+                    picks += 1
+                    if a != got:
+                        tie, gap = judged(sc, None if ref is None else ref["scores", j, i],
+                                          j, i, a, got)
+                        if tie:
+                            miss_ties += 1
+                        else:
+                            misses.append((j, i, got, a, round(gap, 5)))
+            step_one(frames[j:j + 1, i])
+            lg, wl = one["logits"][0], wide_logits[i][j]
             if keep is not None:
                 keep[j, i] = lg.float().clone()
             if ref is not None:
                 rounding.append(rel_rms(lg.float(), ref[j, i]))
-            errs.append(rel_rms(lg, wide["logits"][j]))
-            a, w = int(torch.argmax(lg)), int(torch.argmax(wide["logits"][j]))
+                by_row[j] = max(by_row.get(j, 0.0), rounding[-1])
+            errs.append(rel_rms(lg, wl))
+            a, w = int(torch.argmax(lg)), int(torch.argmax(wl))
             if a != w:
-                if _near_tie(lg if ref is None else ref[j, i], a, w):
+                tie, gap = judged(lg, None if ref is None else ref[j, i], j, i, a, w)
+                if tie:
                     ties += 1
                 else:
                     flips += 1
+                    far.append((j, i, a, w, round(gap, 5)))
     worst, bound = max(errs), tol
     if ref is not None:
         bound = max(tol, BATCH_ROUNDING * max(rounding))
         log(f"[{label}] B=1 {dt} against the fp32 twin's steps on the same frames: talker "
             f"logits rel RMS max {max(rounding):.3e} mean {float(np.mean(rounding)):.3e}; "
             f"bound for B={b} vs B=1: max(TOL_BATCH {tol:g}, sqrt(2) x {max(rounding):.3e}) "
-            f"= {bound:.3e}")
+            f"= {bound:.3e}; by row: "
+            + ", ".join(f"{j} {e:.3e}" for j, e in sorted(by_row.items())))
     log(f"[{label}] B={b} vs B=1 teacher-forced over {steps} steps, streams "
         f"{sorted(singles)}: talker logits rel RMS max {worst:.3e} mean "
         f"{float(np.mean(errs)):.3e} (tol {bound:.3g}), code-0 argmax flips {flips} "
-        f"(+{ties} at near-ties) of {len(errs)} ({card}, {dt})")
+        f"(+{ties} at near-ties) of {len(errs)} ({card}, {dt})"
+        + (f"; (row, step, B=1 code, B={b} code, their gap over the top score): {far[:4]}"
+           if far else ""))
     if emitted:
         log(f"[{label}] emitted code 0 against the B=1 greedy pick before its step: "
             f"{len(misses)} off (+{miss_ties} at near-ties) of {picks}"
-            + (f"; first (row, step, emitted, pick): {misses[:4]}" if misses else ""))
+            + (f"; first (row, step, emitted, pick, their gap over the top score): "
+               f"{misses[:4]}" if misses else ""))
+    if tie_gaps:
+        log(f"[{label}] near ties on the fp32 twin's scores (row, step, gap, limit over the "
+            f"top score; NEAR_TIE {NEAR_TIE:g}): {tie_gaps}")
     if not worst <= bound or flips:
         raise SystemExit(f"[{label}] the B = {b} lockstep step disagrees with B = 1 ({dt})")
     if misses:
         raise SystemExit(f"[{label}] the emitted frames disagree with the B = 1 greedy picks")
     return {"worst": worst, "mean": float(np.mean(errs)), "bound": bound,
-            "rounding": max(rounding) if rounding else None, "flips": flips, "ties": ties}
+            "rounding": max(rounding) if rounding else None, "flips": flips, "ties": ties,
+            "tie_gaps": tie_gaps}
 
 
 SERVING_VOCODER = ("pre_transformer", "upsample_stage", "residual_units", "block_upsample")
@@ -3015,20 +3149,21 @@ def serving_runs(pl, card: str, label: str, temps, streams,
 
 
 def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
-                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 4, 8, 16, 32),
-                  pl32=None, w8r: bool = True):
+                  streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 8, 16, 32),
+                  pl32=None, w8r: bool = True, profiled=(8, 32), eager_profiled: bool = True):
     """Batched serving on the megakernel configuration's weights (the
     megakernels idle: the batched path runs the `w8r` product at M = B):
     serving_runs' counted run of `temps` and `streams`; then, outside it,
     the `w8r` product's check (`w8r`), the step's times at each of
-    `widths`, graph against eager, B = 8 against B = 1 (with `pl32`, an
-    fp32 twin, BATCH_ROUNDING's checks). Returns (launch counts of the
-    counted run, metrics)."""
+    `widths` (its device time at those of `profiled`, the eager step's at
+    the widest with `eager_profiled`), graph against eager, B = 8 against
+    B = 1 (with `pl32`, an fp32 twin, BATCH_ROUNDING's checks). Returns
+    (launch counts of the counted run, metrics)."""
     launches, m = serving_runs(pl, card, label, temps, streams)
     t_part = time.perf_counter()
     if w8r:
         m["w8r_product"] = w8r_product(pl, card)
-    m["steps"] = step_times(pl, card, label, widths)
+    m["steps"] = step_times(pl, card, label, widths, profiled, eager_profiled)
     frames = graph_vs_eager(pl, card, label=label)
     t_tf = time.perf_counter()
     m["batch_vs_single"] = batch_vs_single(pl, card, frames, label, pl32)
@@ -3140,8 +3275,9 @@ def w8r_product(pl, card: str, m: int = 8) -> dict:
     return out
 
 
-# The service phase: a burst of 8 requests of BURST_TOKENS frames each into
-# the idle batch; then, while two long requests
+# The service phases: a burst of requests of BURST_TOKENS frames each into
+# the idle batch (service-modes' and service-1.7b's: mode_burst); then,
+# in service-modes, while two long requests
 # keep the batch running, 4 staggered arrivals (one sampled), a client that
 # hangs up after its first audio, an OpenAI-style pcm request and a
 # /tts_many of 2 texts. Each text's
@@ -3160,6 +3296,62 @@ SERVICE_TEXTS = (
 BURST_TOKENS = 48  # few, for the script's time
 LATE_TEXTS = ("A late arrival takes a freed slot.", "A sampled request joins later.",
               "The third late arrival.", "Last of the late arrivals.")
+# The mode burst (service-modes at 0.6B, service-1.7b's burst):
+# testing.MODE_BURST, the CPU tests' burst, sent over HTTP as 8 streamed
+# requests at temperature 0, one of each prompt layout a voice-design or
+# cloning service batches together (two VoiceDesign descriptions of
+# different token lengths, two CustomVoice requests, a speaker-embedding
+# clone and an ICL request from one 5 s reference clip (REF_S), the OpenAI
+# route's `voice` + `instructions`, a built-in speaker). MODE_NAMES names
+# each in order; the clip goes as base64 16-bit WAV, which the server turns
+# into a speaker embedding (no transcript) or ICL codes (with one) on the
+# request's thread. The texts' trailing tokens fit the default trailing
+# bucket (64), and an ICL prompt of a 5 s clip's 63 codes the default
+# prompt bucket (128)
+MODE_NAMES = ("voice_design", "voice_design_long", "custom_voice", "custom_voice_2",
+              "speaker_embedding", "icl", "openai_instructions", "builtin")
+REF_S, LONG_REF_S = 5.0, 9.0  # the long clip's ICL prompt passes the 128-row bucket
+LONG_REF_TEXT = "A long reference clip to clone."
+
+
+def mode_burst(clip) -> list:
+    """testing.MODE_BURST as (mode, path, body) HTTP requests, the clip
+    (float PCM at 24 kHz) as base64 16-bit WAV, as a client sends it."""
+    from qwen3_tts_tpu_torch import testing
+    from qwen3_tts_tpu_torch.io.wav import wav_data
+
+    b64 = base64.b64encode(wav_data(np.asarray(clip, np.float32), 24000)).decode()
+    out = []
+    for mode, (text, speaker, kw) in zip(MODE_NAMES, testing.MODE_BURST, strict=True):
+        if mode == "openai_instructions":
+            out.append((mode, "/v1/audio/speech", {
+                "input": text, "voice": speaker, "instructions": kw["instruct"],
+                "response_format": "pcm", "stream_format": "audio"}))
+            continue
+        body = {"text": text, **({"speaker": speaker} if speaker else {})}
+        if "instruct" in kw:
+            body["instruct"] = kw["instruct"]
+        if "speaker_embedding" in kw or "reference_audio_codes" in kw:
+            body["reference_audio_b64"] = b64
+        if "reference_transcript" in kw:
+            body["reference_transcript"] = kw["reference_transcript"]
+        out.append((mode, "/tts?stream=1", body))
+    return out
+
+
+def burst_prompts(pl, burst: list) -> list:
+    """(text, speaker, prompt kwargs) of each burst request on `pl`, as the
+    server maps it (the OpenAI route's `voice` / `instructions` to speaker /
+    instruct; server._prompt_kwargs runs the encoders on `pl`)."""
+    from qwen3_tts_tpu_torch import server
+
+    out = []
+    for _, path, body in burst:
+        if path == "/v1/audio/speech":
+            body = {"text": body["input"], "speaker": body["voice"],
+                    "instruct": body["instructions"]}
+        out.append((body["text"], body.get("speaker", ""), server._prompt_kwargs(body, pl)))
+    return out
 
 
 def _http_client(port: int, path: str, body: dict, out: dict, hang_up: bool = False) -> None:
@@ -3199,11 +3391,14 @@ def _pcm_ok(data: bytes, spf: int) -> tuple[bool, int]:
 
 
 def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl32=None,
-                  batch_size: int = 8, burst_tokens: int = BURST_TOKENS, tf_rows=None):
+                  batch_size: int = 8, burst_tokens: int = BURST_TOKENS, tf_rows=None,
+                  burst=None):
     """The always-on service over HTTP on localhost (server.serve at B =
     batch_size, warmup=True): a burst of batch_size streamed requests
-    (SERVICE_TEXTS in turn, burst_tokens frames) at temperature 0 into the
-    idle batch; then (`mixed`), while two long requests keep the batch
+    (SERVICE_TEXTS in turn, or `burst`: mode_burst's (mode, path, body) of
+    each slot, the modes' prompt layouts in one batch; burst_tokens
+    frames) at temperature 0 into the idle batch; then (`mixed`), while two
+    long requests keep the batch
     running, 4 staggered arrivals (one at 0.85), a client that hangs up
     after its first audio, an OpenAI-style pcm request and a /tts_many of 2
     texts beside the busy service. Checks every
@@ -3213,9 +3408,12 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
     against B = 1 on its own frames (a
     smoke tool records them: a wrapped filter_valid_frames hands the
     service worker's raw frames to a recording _RowPacker); with `pl32`
-    (fp32_twin(pl)) beside the twin's prefill of the same burst (twin_rows),
-    under BATCH_ROUNDING's bound. Returns (launch counts of the traffic,
-    metrics)."""
+    (fp32_twin(pl)) BATCH_ROUNDING's two checks: the twin's B = batch_size
+    against its B = 1 prefills of the same requests at TOL["float32"], then
+    the bf16 comparison under the derived bound. With `burst`, also the
+    service's greedy graph against the eager step bit for bit on the
+    burst's own mixed batch, and each mode's first PCM byte. Returns
+    (launch counts of the traffic, metrics)."""
     import http.client
 
     import torch
@@ -3223,6 +3421,7 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
     from qwen3_tts_tpu_torch import server
     from qwen3_tts_tpu_torch.io.wav import streaming_wav_header
     from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import prompt as prompt_mod
     from qwen3_tts_tpu_torch.models import serving as srv
 
     spf, m = pl._samples_per_frame, {}
@@ -3272,10 +3471,15 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
 
         # the burst alone, into the idle batch
         t_burst = time.perf_counter()
-        threads = [go(f"burst{i}", "/tts?stream=1", {
-            "text": SERVICE_TEXTS[i % len(SERVICE_TEXTS)], "speaker": "aiden",
-            "temperature": 0.0, "max_tokens": burst_tokens, "seed": 100 + i})
-            for i in range(batch_size)]
+        if burst is None:
+            threads = [go(f"burst{i}", "/tts?stream=1", {
+                "text": SERVICE_TEXTS[i % len(SERVICE_TEXTS)], "speaker": "aiden",
+                "temperature": 0.0, "max_tokens": burst_tokens, "seed": 100 + i})
+                for i in range(batch_size)]
+        else:
+            threads = [go(f"burst{i}", path, {**body, "temperature": 0.0,
+                                              "max_tokens": burst_tokens, "seed": 100 + i})
+                       for i, (_, path, body) in enumerate(burst)]
         for th in threads:
             th.join(timeout=600)
         # two long requests keep the batch running; once they decode, the
@@ -3339,6 +3543,12 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
             ok = h.get("content-type") == "audio/pcm" and _pcm_ok(o["body"], spf)[0]
         elif name == "hangup":
             ok = o["body"][:44] == header and len(o["body"]) == 45
+        elif h.get("content-type") == "audio/pcm":  # a burst's streamed OpenAI request
+            n = _pcm_ok(o["body"], spf)[1]
+            ok = h.get("transfer-encoding") == "chunked" and _pcm_ok(o["body"], spf)[0]
+            burst_audio_s += n / pl.sample_rate
+            burst_frames += n // spf
+            firsts.append(o["first_s"])
         else:
             ok = (h.get("transfer-encoding") == "chunked" and o["body"][:44] == header
                   and _pcm_ok(o["body"][44:], spf)[0])
@@ -3365,6 +3575,16 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         f"over HTTP per request (s): " + ", ".join(f"{x:.3f}" for x in firsts)
         + f"; min {min(firsts):.3f}, median {np.median(firsts):.3f}, max {max(firsts):.3f} "
         f"({card}, bf16)")
+    if burst is not None:
+        m["first_audio_by_mode_s"] = {mode: outs[f"burst{i}"]["first_s"]
+                                      for i, (mode, _, _) in enumerate(burst)}
+        m["frames_by_mode"] = {mode: _pcm_ok(outs[f"burst{i}"]["body"][
+            0 if path == "/v1/audio/speech" else 44:], spf)[1] // spf
+            for i, (mode, path, _) in enumerate(burst)}
+        log(f"[{label}] the mode burst: first PCM byte over HTTP (s) and frames by mode: "
+            + ", ".join(f"{mode} {m['first_audio_by_mode_s'][mode]:.3f} "
+                        f"({m['frames_by_mode'][mode]})" for mode, _, _ in burst)
+            + f"; serving RTF {m['burst_rtf']:.4f} ({card}, bf16)")
     if mixed:
         log(f"[{label}] staggered arrivals into the running batch (two requests of 120 "
             f"frames decoding): first PCM byte (s): "
@@ -3391,44 +3611,164 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
                  idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
                        "pre_transformer_fused"))
     # each greedy burst stream, teacher-forced against B = 1
-    burst = sorted((r for r in raw if 100 <= getattr(r, "seed", -1) < 100 + batch_size),
-                   key=lambda r: r.seed)
-    if len(burst) != batch_size:
-        raise SystemExit(f"[{label}] recorded {len(burst)} burst streams of {batch_size}")
-    streams = [np.concatenate(raw[r]) for r in burst]
+    reqs = sorted((r for r in raw if 100 <= getattr(r, "seed", -1) < 100 + batch_size),
+                  key=lambda r: r.seed)
+    if len(reqs) != batch_size:
+        raise SystemExit(f"[{label}] recorded {len(reqs)} burst streams of {batch_size}")
+    streams = [np.concatenate(raw[r]) for r in reqs]
     steps = min(8, min(len(f) for f in streams))
     frames = torch.from_numpy(np.stack([f[:steps] for f in streams]).astype(np.int64)).cuda()
-    wide = svc._prefill_bootstrap(dict(enumerate(burst)))
-    singles = {j: svc._prefill(r) for j, r in enumerate(burst)
+    wide = svc._prefill_bootstrap(dict(enumerate(reqs)))
+    singles = {j: svc._prefill(r) for j, r in enumerate(reqs)
                if tf_rows is None or j in tf_rows}
     ref, t_tf = None, time.perf_counter()
-    if pl32 is not None:
-        ref = twin_rows(pl32, svc.statics, _service_bootstrap(pl32, svc, burst), frames)
+    if pl32 is not None:  # BATCH_ROUNDING's two checks, as batch_vs_single makes them
+        prompts = None if burst is None else burst_prompts(pl32, burst)
+        ref = {}
+        m["batch_vs_single_fp32"] = held_against_single(
+            pl32, card, label, svc.statics, _service_bootstrap(pl32, svc, reqs, prompts),
+            {j: _service_bootstrap(pl32, svc, [reqs[j]], prompts) for j in singles},
+            frames, tol=TOL["float32"], keep=ref)
     m["batch_vs_single"] = held_against_single(pl, card, label, svc.statics, wide, singles,
                                                frames, emitted=True, ref=ref)
     log(f"[{label}] B = {batch_size} against B = 1: {time.perf_counter() - t_tf:.1f} s")
+    if burst is not None:  # the service's own greedy graph on the mixed layouts
+        lengths = [prompt_mod.pd_lengths(r.pd)[0] for r in reqs]
+        log(f"[{label}] the burst's prompt rows by slot: {lengths} (bucket "
+            f"{svc.prompt_bucket})")
+        graph_vs_eager(pl, card, label=label, state=svc._prefill_bootstrap(dict(enumerate(
+            reqs))), statics=svc.statics)
     return launches, m
 
 
-def _service_bootstrap(pl, svc, burst: list):
+def _service_bootstrap(pl, svc, burst: list, prompts=None):
     """The full-B prefill svc._prefill_bootstrap makes of `burst` (slot j:
     burst[j], speaker aiden, its text the SERVICE_TEXTS entry its seed
-    names, in turn), on pl's trees: prompts padded to svc's buckets, svc's
-    statics."""
+    names, in turn; or prompts[seed - 100], a (text, speaker, prompt
+    kwargs) of burst_prompts), on pl's trees: prompts padded to svc's
+    buckets, svc's statics."""
     import torch
 
     from qwen3_tts_tpu_torch import service as service_mod
     from qwen3_tts_tpu_torch.models import prompt as prompt_mod
 
+    def prompt(seed):  # a burst request's seed is 100 + its slot
+        if prompts is not None:
+            return prompts[seed - 100]
+        return SERVICE_TEXTS[(seed - 100) % len(SERVICE_TEXTS)], "aiden", {}
+
     pds = [prompt_mod.assemble_prompt_padded(
-        pl.params, pl.config, pl.tokenizer, SERVICE_TEXTS[(r.seed - 100) % len(SERVICE_TEXTS)],
-        speaker="aiden",
-        prompt_bucket=svc.prompt_bucket, trailing_bucket=svc.trailing_bucket) for r in burst]
+        pl.params, pl.config, pl.tokenizer, prompt(r.seed)[0], speaker=prompt(r.seed)[1],
+        prompt_bucket=svc.prompt_bucket, trailing_bucket=svc.trailing_bucket,
+        **prompt(r.seed)[2]) for r in burst]
     lengths, totals = zip(*(prompt_mod.pd_lengths(pd) for pd in pds))
     return service_mod._prefill_rows(
         pl.params, torch.cat([pd.input_embeds for pd in pds]),
         torch.cat([pd.trailing_hidden for pd in pds]), list(lengths), list(totals),
         [r.seed for r in burst], pds[0].tts_pad_embed, svc.statics)
+
+
+def long_reference(pl, card: str, label: str, clip) -> tuple[dict, dict]:
+    """The ICL request whose reference is `clip` (LONG_REF_S seconds): its
+    prompt passes the default 128-row bucket, so a default service refuses
+    it at submit with the JAX service's ValueError and message
+    (qwen3_tts_tpu/service.py: "prompt (p embeds / t trailing) exceeds
+    service buckets (pb/tb); ..."), and a service built with the first
+    PROMPT_BUCKETS entry that holds its rows (its ring capacity that bucket
+    + RING_SLACK) serves it at temperature 0 beside a built-in speaker in
+    one batch. Returns (launch counts of the served pair, metrics)."""
+    import torch
+
+    from qwen3_tts_tpu_torch import service as service_mod
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+    from qwen3_tts_tpu_torch.models import prompt as prompt_mod
+    from qwen3_tts_tpu_torch.testing import REFERENCE_TRANSCRIPT
+
+    spf, m = pl._samples_per_frame, {}
+    codes, m["audio_encoder_s"] = _timed(lambda: pl.encode_reference_audio(clip))
+    kw = {"reference_transcript": REFERENCE_TRANSCRIPT, "reference_audio_codes": codes}
+    p, t = prompt_mod.pd_lengths(prompt_mod.assemble_prompt(
+        pl.params, pl.config, pl.tokenizer, LONG_REF_TEXT, **kw))
+    svc = service_mod.TTSService(pl, batch_size=8)
+    want = (f"prompt ({p} embeds / {t} trailing) exceeds service buckets "
+            f"({svc.prompt_bucket}/{svc.trailing_bucket}); shorten the text or run a service "
+            "with larger buckets")
+    try:
+        svc.submit(LONG_REF_TEXT, temperature=0.0, max_tokens=BURST_TOKENS, **kw)
+        got = "accepted"
+    except ValueError as e:
+        got = str(e)
+    finally:
+        svc.close()
+    log(f"[{label}] an ICL request on a {len(clip) / 24000:.1f} s clip ({len(codes[0])} codes, "
+        f"encoded in {m['audio_encoder_s']:.3f} s): {p} prompt rows; the default service "
+        f"(prompt bucket {svc.prompt_bucket}): {got!r} "
+        f"{'ok' if got == want else 'FAIL (expected ' + repr(want) + ')'}")
+    if got != want:
+        raise SystemExit(f"[{label}] the default service did not refuse the long reference as "
+                         "the JAX service does")
+    bucket = gen_mod.pick_bucket(p)
+    wide = service_mod.TTSService(pl, batch_size=8, prompt_bucket=bucket)
+    try:
+        if wide.statics.capacity != bucket + gen_mod.RING_SLACK:
+            raise SystemExit(f"[{label}] ring capacity {wide.statics.capacity}, not "
+                             f"{bucket} + RING_SLACK")
+        torch.cuda.synchronize()
+        reset_counts()
+        held: list = []
+        t0 = time.perf_counter()
+        wide.submit(LONG_REF_TEXT, temperature=0.0, max_tokens=BURST_TOKENS, seed=0,
+                    _hold=held, **kw)
+        wide.submit(SERVICE_TEXTS[1], "aiden", temperature=0.0, max_tokens=BURST_TOKENS,
+                    seed=1, _hold=held)
+        wide._enqueue(held)
+        audio = [r.audio() for r in held]
+        m["served_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counts()
+        s = wide.stats()
+    finally:
+        wide.close()
+    for name, a in zip(("long_icl", "builtin"), audio):
+        _check_audio(label, name, a, spf)
+    frames = [len(a) // spf for a in audio]
+    log(f"[{label}] a service at prompt bucket {bucket} (ring capacity {bucket} + RING_SLACK) "
+        f"served it beside a built-in speaker: {frames[0]} and {frames[1]} frames in "
+        f"{m['served_s']:.2f} s, its first graph captured in it; completed "
+        f"{s['requests_completed']} of {s['requests_submitted']} ({card})")
+    if s["requests_completed"] != 2 or s["requests_failed"]:
+        raise SystemExit(f"[{label}] the larger-bucket service did not serve both: {s}")
+    check_counts(label + " long reference", launches,
+                 need=("int8_matmul",) + SERVING_VOCODER,
+                 idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul",
+                       "pre_transformer_fused"))
+    m.update(rows=p, bucket=bucket, frames=frames)
+    return launches, m
+
+
+def phase_service_modes(pl, card: str, design) -> tuple[dict, dict]:
+    """The voice modes through the lockstep service, on the modes-pipeline
+    phase's 0.6B pipeline (both encoders; its talker, code predictor and
+    vocoder are the pipeline phase's, the same seed: the megakernel
+    configuration's weights, the `w8r` product at M = B in the step's
+    graph): phase_service with mode_burst on a 5 s clip of `design` (its
+    VoiceDesign audio) and the mixed traffic after it (staggered arrivals,
+    a hang-up, /v1/audio/speech, /tts_many), beside the fp32 twin
+    (BATCH_ROUNDING's checks, near ties judged on its scores), the
+    service's greedy graph bit for bit its eager step on the burst's mixed
+    batch; then long_reference on a LONG_REF_S clip (`design` tiled).
+    Returns (launch counts summed over the service's traffic and the long
+    reference's service, metrics)."""
+    t_phase = time.perf_counter()
+    label, m = "service-modes", {}
+    clip = np.resize(design, int(REF_S * 24000))
+    launches, m["service"] = phase_service(pl, card, label, pl32=fp32_twin(pl),
+                                           burst=mode_burst(clip))
+    long_launches, m["long_reference"] = long_reference(
+        pl, card, label, np.resize(design, int(LONG_REF_S * 24000)))
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return _summed(launches, long_launches), m
 
 
 def k3_step_launches(cfg) -> int:
@@ -4863,10 +5203,11 @@ M0_SHAPES_1_7B = (("qkv", 2048, 4096), ("o", 2048, 2048), ("gate/up", 2048, 1228
                   ("down", 6144, 2048), ("codec head", 2048, 3072),
                   ("cp lm head", 1024, 2048), ("fc1", 2048, 2048), ("fc2", 2048, 2048))
 FRAMES_1_7B = 320  # past the 192-slot window's trims and the ring's wrap
-# teacher forcing at 1.7B: the kernels alone to frame 186, then both over
-# frames 186-231, which hold the window's trims at steps 195, 210 and 225
-# and, with the 9-row prompt, the ring's wrap at step 224
-TF_1_7B = (186, 232)
+# teacher forcing at 1.7B: the kernels alone to frame 216, then both over
+# frames 216-231, which hold the window's trim at step 225 and, with the
+# 9-row prompt, the ring's wrap at step 224 (16 frames: the plain K1 / K2
+# steps cost ~0.3 s a frame)
+TF_1_7B = (216, 232)
 
 
 def qmm_1_7b(rec: Record, gen, dev) -> None:
@@ -5046,6 +5387,71 @@ def phase_1_7b(card: str, floors: tuple[float, float], d: str, write_s: float):
     return launches, metrics, rec, swept, pl
 
 
+MODE_FRAMES_1_7B = 96  # each 1.7B single-stream mode's frames, as the 0.6B modes'
+
+
+def phase_modes_1_7b(pl, card: str) -> tuple[dict, dict, np.ndarray]:
+    """Every generation mode at 1.7B on the 1.7b phase's pipeline and dir
+    (default configuration, both encoders: the speaker encoder's enc_dim
+    2048, read from its fc weight): every_mode's single streams of
+    MODE_FRAMES_1_7B frames (VoiceDesign, CustomVoice, a streamed
+    VoiceDesign with its first audio, the 2048-wide x-vector of a 5 s clip
+    and generate with it, generate_icl), counts set to 0 before and read
+    after: K1 and K2 once a decoded frame, K3 (the text projection, the
+    instruct rows with it), K4-K6 and the blocks' upsample launched, K7 and
+    K2g's kernel not; the x-vector against the same speaker encoder on
+    the card's machine's CPU (fp32, rel RMS 1e-4). Returns (launch counts,
+    metrics, the 5 s clip of its VoiceDesign audio: service-1.7b's burst
+    clones it)."""
+    import copy
+
+    import torch
+
+    from qwen3_tts_tpu_torch.models import generate as gen_mod
+
+    t_phase = time.perf_counter()
+    label, m = "modes-1.7b", {}
+    enc_dim = pl.speaker_encoder.config.enc_dim
+    log(f"[{label}] the 1.7B dir's speaker encoder: enc_dim {enc_dim} (from fc.weight), the "
+        f"talker's hidden {pl.config.hidden_size}")
+    if enc_dim != pl.config.hidden_size or not pl.supports_icl:
+        raise SystemExit(f"[{label}] the 1.7B encoders did not load at the talker's width")
+    torch.cuda.synchronize()
+    reset_counts()
+    with decoded_frames(gen_mod) as steps:
+        _, ref, emb, _ = every_mode(pl, card, label, m, MODE_FRAMES_1_7B)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    k1, k2 = launches["talker_step"], launches["cp_frame"]
+    log(f"[{label}] {steps['frames']} frames decoded over the five runs: K1 {k1}, K2 {k2}, "
+        f"K3 {launches['int8_matmul']} (text projections) ({card})")
+    if not (k1 == k2 == steps["frames"] == 5 * MODE_FRAMES_1_7B):
+        raise SystemExit(f"[{label}] K1 and K2 did not run once a frame")
+    check_counts(label, launches, need=("talker_step", "cp_frame", "int8_matmul")
+                 + SERVING_VOCODER, idle=("gumbel_sample", "packed_matmul",
+                                          "pre_transformer_fused"))
+    t0 = time.perf_counter()
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [to_cpu(v) for v in t]
+        return t.cpu()
+
+    cpu = copy.copy(pl.speaker_encoder)
+    cpu.params, cpu.device = to_cpu(cpu.params), torch.device("cpu")
+    m["xvector_vs_cpu"] = rel_rms(torch.from_numpy(emb),
+                                  torch.from_numpy(cpu.extract_embedding(ref)))
+    log(f"[{label}] the {emb.shape[0]}-wide x-vector on the card against the CPU (fp32): rel "
+        f"RMS {m['xvector_vs_cpu']:.3e} (tol 1e-4) ({time.perf_counter() - t0:.1f} s)")
+    if not m["xvector_vs_cpu"] <= 1e-4:
+        raise SystemExit(f"[{label}] the 2048-wide speaker encoder disagrees with its CPU run")
+    m["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{label}] phase: {m['phase_s']:.1f} s ({card})")
+    return launches, m, ref
+
+
 def fp32_twin(pl):
     """pl with every bf16 tensor of its talker and code-predictor trees
     widened to fp32 (int8 weights, fp32 scales and the kernel trees shared,
@@ -5068,10 +5474,13 @@ def fp32_twin(pl):
     return twin
 
 
+K3_1_7B_FRAMES = 4  # host-bound (RTF ~5), as mixed-1.7b's
+
+
 def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
                           m: dict) -> None:
     """serving-1.7b's K3 configuration, loaded from the 1.7B dir `d`:
-    generate and generate_stream of 8 frames with K3's launches a decoded
+    generate and generate_stream of K3_1_7B_FRAMES frames with K3's launches a decoded
     frame (k3_step_launches; 0.6B's beside it), serving_step with the fp32
     twin, its graph bit for bit the eager step. Fills runs / m["k3"] and
     ["k3_serving"]."""
@@ -5086,7 +5495,8 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
     with decoded_frames(gen_mod) as steps:
         pk, runs["k3"], m["k3"] = run_pipeline(
             card, d, "k3-1.7b", off, need=("int8_matmul",) + vocoder,
-            idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul"), frames=8)
+            idle=("talker_step", "cp_frame", "gumbel_sample", "packed_matmul"),
+            frames=K3_1_7B_FRAMES)
     per_frame = steps["int8_matmul"] / steps["frames"]
     expect = k3_step_launches(pk.config)
     log(f"[k3-1.7b] K3 launches a decoded frame: {per_frame:g} over {steps['frames']} frames "
@@ -5104,7 +5514,7 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
     torch.cuda.empty_cache()
 
 
-def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
+def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float, clip):
     """The 1.7B model batched, on the 1.7b phase's pipeline (megakernel
     configuration's weights: every talker and code-predictor linear the
     `w8r` product at M = B, small_to_mtp_projection on K3) and its dir:
@@ -5113,10 +5523,12 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     launches a step (M = 2B once, then B), its 5 replays' K3 kernels counted
     by name, the graph bit for bit the eager step, B = 8 against B = 1 with
     BATCH_ROUNDING's checks; the service's burst over HTTP (phase_service,
-    the burst alone) beside the fp32 twin's prefill of the same burst;
-    then the K3 configuration loaded from
-    the dir: generate and generate_stream of 8 frames with K3's launches a
-    decoded frame (k3_step_launches, beside the 0.6B figure), its lockstep
+    the burst alone: mode_burst on the 5 s `clip` of the 1.7B model's own
+    VoiceDesign speech, every mode's prompt layout in one batch) beside the
+    fp32 twin's prefill of the same burst, its greedy graph bit for bit the
+    eager step on that batch; then the K3 configuration loaded from the
+    dir: generate and generate_stream of K3_1_7B_FRAMES frames with K3's
+    launches a decoded frame (k3_step_launches, beside the 0.6B figure), its lockstep
     step at B = 8 from one graph (serving_step, with the fp32 twin), its graph
     bit for bit the eager step. Returns (launch counts summed over the
     counted runs, the counts of each, metrics)."""
@@ -5128,7 +5540,7 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     label, runs, m = "serving-1.7b", {}, {}
     runs["serving"], m["serving"] = phase_serving(
         pl, card, label, temps=(0.85,), streams=((SERVE_TEXTS, 8),), widths=(1, 8, 16),
-        pl32=fp32_twin(pl), w8r=False)
+        pl32=fp32_twin(pl), w8r=False, profiled=(8,), eager_profiled=False)
     expect = pl.config.code_predictor_config.num_code_groups - 1  # a projection a pass
     for b, r in m["serving"]["steps"].items():
         ok = r["k3_per_step"] == expect and r["k3_m"] == {2 * b: 1, b: expect - 1}
@@ -5149,7 +5561,7 @@ def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float):
     del state
     log(f"[{label}] serving part: {time.perf_counter() - t_phase:.1f} s")
     runs["service"], m["service"] = phase_service(pl, card, "service-1.7b", mixed=False,
-                                                  pl32=fp32_twin(pl))
+                                                  pl32=fp32_twin(pl), burst=mode_burst(clip))
     torch.cuda.empty_cache()
     log(f"[{label}] serving and service parts: {time.perf_counter() - t_phase:.1f} s")
     k3_configuration_1_7b(d, card, k3_per_frame_06, runs, m)
@@ -5325,7 +5737,8 @@ def _write_dirs(jobs: list) -> None:
     marked done by `path`.written (JSON: its seconds). Kinds: "prequant"
     (the 0.6B dir pre-quantized to 4 bits, group 64), "modes" (0.6B with
     both encoders), "golden" (verify's 0.6B dir packed at 4 / 6 / 8 bits
-    with both encoders), "1.7b" (the 1.7B dir), "packed-1.7b" (a copy of the
+    with both encoders), "1.7b" (the 1.7B dir with both encoders, its speaker
+    encoder's enc_dim 2048), "packed-1.7b" (a copy of the
     1.7B dir `source`, written by an earlier job, packed to 4 bits, group
     64, by testing._pack_talker_weights). Host work only: no CUDA."""
     import qwen3_tts_tpu_torch as qt
@@ -5348,8 +5761,9 @@ def _write_dirs(jobs: list) -> None:
         elif kind == "golden":
             write_golden_model_dir(path, qt.Qwen3TTSConfig.standard(), dec, widths=(4, 6, 8),
                                    group_size=64, seed=0)
-        elif kind == "1.7b":
-            write_model_dir(path, qt.Qwen3TTSConfig.standard_1_7b(), dec, seed=0)
+        elif kind == "1.7b":  # with both encoders: the speaker encoder 2048 wide
+            write_model_dir(path, qt.Qwen3TTSConfig.standard_1_7b(), dec, seed=0,
+                            with_encoders=True, tts_model_type="base")
         elif kind == "packed-1.7b":
             shutil.copytree(source, path, dirs_exist_ok=True)
             times["copy_s"] = time.perf_counter() - t0
@@ -5492,8 +5906,6 @@ def main() -> int:
         twin = fp32_twin(pl)
         runs32["w8r"], results["serving_32"] = phase_serving_32(pl, card, pl32=twin)
         mark("serving-32")
-        launches["service"], results["service"] = phase_service(pl, card)
-        mark("service")
         runs32["service"], results["service_32"] = phase_service(
             pl, card, "service-32", mixed=False, pl32=twin, batch_size=32,
             burst_tokens=STREAM_32_TOKENS, tf_rows=(0, 31))
@@ -5574,8 +5986,13 @@ def main() -> int:
         log("[modes-pipeline] a random-weight 0.6B model dir with the speaker encoder "
             "(SpeakerEncoderConfig()) and the audio encoder (TokenizerEncoderConfig())")
         mark("prequant-pipeline")
-        launches["modes"], results["modes"] = phase_modes(card, d)
+        launches["modes"], results["modes"], pl, design = phase_modes(card, d)
         mark("modes-pipeline")
+        launches["service_modes"], results["service_modes"] = phase_service_modes(
+            pl, card, design)
+        del pl
+        torch.cuda.empty_cache()
+        mark("service-modes")
     launches["verify"], results["verify"] = phase_verify(card, dirs["golden"], writer)
     mark("verify")
     launches["tp"], results["tp"] = phase_tp(card, main_dir.name)
@@ -5590,9 +6007,11 @@ def main() -> int:
         launches["1_7b"], results["1_7b"], rec17, m0_1_7b, pl = phase_1_7b(card, floors, d,
                                                                            write_s)
         mark("1.7b")
+        launches["modes_1_7b"], results["modes_1_7b"], clip_1_7b = phase_modes_1_7b(pl, card)
+        mark("modes-1.7b")
         (launches["serving_1_7b"], serving_1_7b_runs,
          results["serving_1_7b"]) = phase_serving_1_7b(pl, d, card,
-                                                        results["k3"]["k3_per_frame"])
+                                                        results["k3"]["k3_per_frame"], clip_1_7b)
         del pl
         torch.cuda.empty_cache()
         mark("serving-1.7b")
@@ -5641,7 +6060,8 @@ def main() -> int:
         for path in ("k3_path", "mixed", "prequant", "modes", "verify"):
             row[f"launches_{path}"] = launches[path][name]
         row["launches_serving"] = launches["serving"][name] + launches["serving_k3"][name]
-        row["launches_service"] = launches["service"][name]
+        row["launches_service_modes"] = launches["service_modes"][name]
+        row["launches_modes_1_7b"] = launches["modes_1_7b"][name]
         row["launches_train"] = launches["train"][name]  # the training path launches none
         row["launches_tp"] = launches["tp"][name]  # rank 0's, on the tp = 2 generate()
         row["launches_1_7b"] = launches["1_7b"][name]

@@ -113,6 +113,48 @@ def tiny_encoder_config(**overrides) -> TokenizerEncoderConfig:
     return TokenizerEncoderConfig(**defaults)
 
 
+# A mixed-mode service burst (the service-mode tests', and chip_smoke.py's
+# over HTTP): one request of each prompt layout a voice-design or cloning
+# service batches together, as (text,
+# speaker, prompt kwargs); "emb" / "codes" stand for a reference clip's
+# speaker embedding and codec codes (mode_burst fills them in). Two
+# VoiceDesign descriptions of different token lengths, two CustomVoice
+# requests (a built-in speaker + instruct), a speaker-embedding clone and
+# an ICL request, the prompt the OpenAI route makes of `voice` +
+# `instructions`, and a built-in speaker.
+REFERENCE_TRANSCRIPT = "The words of the reference clip."
+MODE_BURST = (
+    ("The garden is quiet this morning.", "", {"instruct": "A warm, low narrator voice."}),
+    ("Read the next line a little slower.", "",
+     {"instruct": "A bright, fast-talking radio host with a cheerful tone and a light laugh."}),
+    ("The train leaves at half past nine.", "aiden", {"instruct": "Speak cheerfully."}),
+    ("Please water the plants tonight.", "serena",
+     {"instruct": "Whisper softly, as if telling a secret."}),
+    ("Numbers like twelve are read in full.", "", {"speaker_embedding": "emb"}),
+    ("The museum opens its new wing next week.", "",
+     {"reference_transcript": REFERENCE_TRANSCRIPT, "reference_audio_codes": "codes"}),
+    ("Thank you, we will be with you shortly.", "aiden", {"instruct": "Read it like the news."}),
+    ("The quick brown fox jumps over the dog.", "aiden", {}),
+)
+
+
+def mode_burst(emb, codes) -> list:
+    """MODE_BURST with the reference clip's speaker embedding and codes."""
+    extras = {"emb": emb, "codes": codes}
+    return [(text, spk, {k: extras.get(v, v) if isinstance(v, str) else v
+                         for k, v in kw.items()}) for text, spk, kw in MODE_BURST]
+
+
+def reference_clip(codes: int, encoder_config: TokenizerEncoderConfig) -> np.ndarray:
+    """24 kHz float PCM (a tone with noise) that an audio encoder of
+    `encoder_config` turns into `codes` codes a codebook."""
+    per_code = int(np.prod(encoder_config.upsampling_ratios)) * encoder_config.compress
+    rng = np.random.default_rng(7)
+    t = np.arange(codes * per_code) / 24000.0
+    return (0.3 * np.sin(2 * np.pi * 180 * t) + 0.05 * rng.standard_normal(len(t))
+            ).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # Random parameter trees (JAX package layouts)
 # ---------------------------------------------------------------------------
