@@ -275,7 +275,11 @@ non-zero):
                 the text projection at M = 1, 3, 8, 9, 16 and 114, and K3
                 and K7 4-bit at small_to_mtp_projection (2,048 -> 1,024) at M
                 = 1, 2, 8, 16 and 32, fp32 and bf16, warm and cold, K7's
-                4-bit calls beside torch._weight_int4pack_mm; M0's sweep over
+                4-bit calls beside torch._weight_int4pack_mm; K3 and K7 (4 and
+                6 bits) at a B = 32 step's 1.7B shapes (every talker linear
+                and the projection at M = 32 and 64, bf16, warm, with
+                their bounds; K7 4-bit beside torch._weight_int4pack_mm);
+                M0's sweep over
                 the 1.7B shapes; the dir carries both encoders (the speaker
                 encoder's enc_dim 2048, the talker's width)
   modes-1.7b  - every generation mode at 1.7B on the 1.7b phase's pipeline:
@@ -286,44 +290,56 @@ non-zero):
                 K3 (text projection) and K4-K6 and the upsample launched, K7
                 and K2g's kernel not; the x-vector against the card
                 machine's CPU run in fp32
-  serving-1.7b - the 1.7B model batched, on the 1.7b phase's dir and loaded
-                pipeline (megakernel configuration's weights: the `w8r`
-                product at M = B, small_to_mtp_projection on K3):
-                generate_many on 8 texts at temperature 0.85 and
-                generate_many_stream at batch_size=8, the audio checked, K3
-                (projection, text projection) and K4-K6 and the blocks'
-                upsample launched, K1, K2, K2g's kernel and K7 not; the step
-                at B = 1, 8 and 16 (wall, capture s, pool bytes; device
-                time and kernels at B = 8), K3 15 launches a step (the
-                projection: M = 2B once, then B), counted by name in a
-                profile of 5 replays at B = 8;
-                the graph bit for bit the eager step; B = 8 against B = 1
-                teacher-forced with BATCH_ROUNDING's checks (the same on an
-                fp32 twin of the tree at TOL["float32"], bf16 at the larger
-                of TOL_BATCH and the derived bound); the service over HTTP
-                (the mode burst on a 5 s clip of the 1.7B model's own
-                VoiceDesign speech: 48 streamed frames each at temperature
-                0, first PCM byte by mode, /stats identities, no capture
-                after warmup, each stream against B = 1 beside the twin's
-                prefill of the burst, near ties
-                judged on its scores at the limit derived from the
-                rounding it measures, the greedy graph bit for bit its eager
-                step on the burst's mixed batch); then the K3
-                configuration from the same dir: generate and
+  serving-1.7b - the 1.7B model batched at the JAX package's serving
+                widths (bench.py's B = 32 and its service at B = 16), on
+                the 1.7b phase's dir and loaded pipeline (megakernel
+                configuration's weights: the `w8r` product at M = B,
+                small_to_mtp_projection on K3): generate_many on 32 texts at
+                temperature 0.85 (120 frames, at least 40 vocoder rows in
+                one call) and generate_many_stream at batch_size=32, the
+                audio checked, K3 (projection, text projection) and K4-K6
+                and the blocks' upsample launched, K1, K2, K2g's kernel and
+                K7 not; the step at B = 1, 8 and 32 (wall, capture s, pool
+                bytes; device time and kernels at B = 32), K3 15 launches a
+                step (the projection: M = 2B once, then B; at B = 32 both on
+                the tile), counted by the tile's name in a profile of 5
+                replays at B = 32; the B = 32 graph bit for bit the eager
+                step; B = 32 against B = 1 teacher-forced over 8 steps with
+                BATCH_ROUNDING's checks (the same on an fp32 twin of the
+                tree at TOL["float32"], bf16 at the larger of TOL_BATCH and
+                the derived bound); the service over HTTP at bench.py's
+                shape (batch_size=16, trailing_bucket=128, after warmup): a
+                burst of 16 (the mode burst on a 5 s clip of the 1.7B
+                model's own VoiceDesign speech and 8 built-in requests of
+                bench.py's text, 40 streamed frames each at temperature 0),
+                first PCM byte by mode, the modes' streams and two built-in
+                ones against B = 1 beside the twin's prefill of the burst,
+                near ties judged on its scores at the limit derived from
+                the rounding it measures, the greedy graph bit for bit its
+                eager step on the burst's mixed batch; then 12 long streams
+                (320 frames, T = 0.9) keep the batch busy while 4 arrivals
+                (two built-in, an x-vector clone and an ICL clone of the
+                clip, 40 frames) come 2 s later, each arrival's first PCM
+                byte by mode, then the long streams are cancelled; /stats
+                identities (the cancellations counted, no slot active), no
+                capture after warmup; one fp32 twin serves both parts; then
+                the K3 configuration from the same dir: generate and
                 generate_stream of 4 frames (K3's launches a decoded frame
-                beside the 0.6B figure), 16 lockstep steps at B = 8 from one
-                graph (443 K3 kernels a replay by name), the graph bit for
-                bit the eager step, B = 8 against B = 1 as above
+                beside the 0.6B figure), 16 lockstep steps at B = 32 from
+                one graph (443 K3 a step, all on the tile, counted by the
+                tile's name in 5 replays), the graph bit for bit the eager
+                step, B = 32 against B = 1 as above
   mixed-1.7b  - the 1.7B dir loaded runtime_quantization_mode="mixed_4_6"
                 with the megakernels off: generate() and generate_stream() of
                 4 frames, K7 443 launches a decoded frame (every talker and
                 code-predictor linear, small_to_mtp_projection at 4 bits: M
                 = 2 once a frame, then 1), K1-K3 idle; a profile of the frame
                 loop; the prefill logits with K7 against its plain version in
-                bf16 and on the fp32 twin; the lockstep step at B = 8 from one
-                graph (443 K7 a step, the projection M = 16 once, then 8,
-                counted by name in 5 replays), B = 8 against B = 1 beside the
-                twin, the graph bit for bit the eager step
+                bf16 and on the fp32 twin; the lockstep step at B = 32 from
+                one graph (443 K7 a step, all on the tile, the projection M
+                = 64 once, then 32, counted by the tile's name in 5
+                replays), B = 32 against B = 1 beside the twin, the graph
+                bit for bit the eager step
   prequant-1.7b - a copy of the 1.7B dir packed to 4 bits, group 64 (MLX's
                 layout, testing._pack_talker_weights), on the default
                 configuration: generate() and generate_stream() of 96 frames
@@ -347,7 +363,10 @@ every kernel, and "launches_tp" on the tp phase's generate() on rank 0, "launche
 1.7b phase's generate() and generate_stream(), "launches_serving_1_7b" on the
 serving-1.7b phase's counted runs summed (its serving run, the service's
 traffic, the K3 configuration's pipeline and its lockstep graph's warm-up
-and capture; each in "launches_serving_1_7b_by_run"), "launches_mixed_serving"
+and capture; each in "launches_serving_1_7b_by_run"), "launches_1_7b_b32"
+on the 1.7B B = 32 runs summed (serving-1.7b's serving run, its K3 B = 32
+graph's and mixed-1.7b's B = 32 graph's warm-up and capture),
+"launches_service_1_7b_b16" on service-1.7b's traffic, "launches_mixed_serving"
 on the mixed-serving phase's graph warm-up and capture and its
 generate_many, "launches_mixed_1_7b" and "launches_prequant_1_7b" on those
 phases' pipelines and lockstep graphs (each run in "..._by_run"),
@@ -364,7 +383,8 @@ row also has its library call's time, torch._weight_int4pack_mm at its
 their GEMV's M = 1 main-path calls summed warm, cold and as a bound, the
 cold floor, M0 and the sweep's M0; K3's, K7's, K4's, K5's, K6's and the
 upsample's rows also "at_b32", each call at B = 32's shapes with its error,
-times and bound) and the last is {"ok": true, "device": {...}}.
+times and bound, and K3's and K7's "at_1_7b_b32", the same at a B = 32
+step's 1.7B shapes) and the last is {"ok": true, "device": {...}}.
 
 Times: a call whose back-to-back CUDA-event time is under 50 us is timed
 again by replaying a CUDA graph of it (device time, without Python's
@@ -606,6 +626,23 @@ class Record:
             err = float("nan")
         self.add(name, label, dtype, err, abs_err, TOL[dtype], timing, plain_timing, nb, ops,
                  timed=timed)
+
+    def at_b32(self, name, label, got, ref, timing, plain_timing, nb, ops, rows_checked="all",
+               dtype="bfloat16", **extra):
+        """One call at B = 32 serving's shapes (the kernels line's
+        "at_b32"), held against its plain version on rows_checked (its time
+        is "plain_ms" only where that is every row); not counted in the
+        kernel's row."""
+        whole = rows_checked == "all"
+        note = "" if whole else f"; the plain version on rows {rows_checked}"
+        self.compare(name, f"{label} (B = 32 shapes{note})", dtype, got, ref, timing,
+                     plain_timing, nb, ops, timed=False)
+        b_ms, b_by = bound(nb, ops)
+        self.b32.setdefault(name, []).append({
+            "shape": label, "dtype": dtype, "rel_rms": rel_rms(got.float(), ref.float()),
+            "ms": timing[0],
+            "plain_ms" if whole else "plain_ms_on_rows_checked": plain_timing[0],
+            "rows_checked": rows_checked, "bound_ms": b_ms, "bound_by": b_by, **extra})
 
 
 def weight_numel(kp: dict, names) -> int:
@@ -891,9 +928,9 @@ def phase_kernels(rec: Record) -> None:
 
 # the lockstep step's linears at 0.6B, (name, K, O, K7's bits): 4-bit
 # gate/up, o and down, 6-bit qkv, codec head and cp lm head (the mixed mode)
-STEP_LINEARS = (("qkv", 1024, 4096, 6), ("o", 2048, 1024, 4), ("gate/up", 1024, 6144, 4),
-                ("down", 3072, 1024, 4), ("codec head", 1024, 3072, 6),
-                ("cp lm head", 1024, 2048, 6))
+STEP_LINEARS = (("qkv", 1024, 4096, (6,)), ("o", 2048, 1024, (4,)),
+                ("gate/up", 1024, 6144, (4,)), ("down", 3072, 1024, (4,)),
+                ("codec head", 1024, 3072, (6,)), ("cp lm head", 1024, 2048, (6,)))
 # block 3's rows of 110 frames past the old grid cap (39 rows), and the rows
 # held against the plain versions there (both sides of the cap, the last)
 CAP_ROWS, CAP_CHECKED = (40, 64), (0, 38, 39, 40)
@@ -916,9 +953,7 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
 
     from qwen3_tts_tpu_torch.ops.cuda import (
         _build,
-        packed_matmul as pm,
         pretransformer_kernel as ptk,
-        quant_matmul as qm,
         upsample_kernel as upk,
         vocoder_kernels as vk,
     )
@@ -927,21 +962,6 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    def row(name, label, got, ref, timing, plain_timing, nb, ops, rows_checked="all",
-            dtype=dt, **extra):
-        """One call's comparison; the plain version timed on rows_checked
-        (its time is "plain_ms" only where that is every row)."""
-        whole = rows_checked == "all"
-        note = "" if whole else f"; the plain version on rows {rows_checked}"
-        rec.compare(name, f"{label} (B = 32 shapes{note})", dtype, got, ref, timing,
-                    plain_timing, nb, ops, timed=False)
-        b_ms, b_by = bound(nb, ops)
-        rec.b32.setdefault(name, []).append({
-            "shape": label, "dtype": dtype, "rel_rms": rel_rms(got.float(), ref.float()),
-            "ms": timing[0],
-            "plain_ms" if whole else "plain_ms_on_rows_checked": plain_timing[0],
-            "rows_checked": rows_checked, "bound_ms": b_ms, "bound_by": b_by, **extra})
 
     t_part = time.perf_counter()
     kw = dict(nh=cfg.num_attention_heads, hd=cfg.head_dim, eps=cfg.rms_norm_eps)
@@ -985,7 +1005,7 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
         checked = "all" if check is None else list(check)
         sl = slice(None) if check is None else checked
         up_ops = 2 * x.shape[0] * x.shape[1] * bp["up_w"].numel()
-        row("block_upsample", f"block{i} {label}", y[sl],
+        rec.at_b32("block_upsample", f"block{i} {label}", y[sl],
             vk.block_upsample_plain(bp, x[sl], rate=rate),
             time_ms(lambda: vk.block_upsample_kernel(bp, x, rate=rate), 3),
             time_ms(lambda: vk.block_upsample_plain(bp, x[sl], rate=rate), 2),
@@ -993,7 +1013,8 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
             {dtype: up_ops}, rows_checked=checked, dtype=dtype)
         rows = y.shape[0] * y.shape[1]
         units = [v for k, v in bp.items() if k.startswith(("u_", "t_"))]
-        row("residual_units", f"block{i} {label}", got[sl], vk.residual_units_plain(bp, y[sl]),
+        rec.at_b32("residual_units", f"block{i} {label}", got[sl],
+                   vk.residual_units_plain(bp, y[sl]),
             time_ms(lambda: vk.residual_units_kernel(bp, y), 3),
             time_ms(lambda: vk.residual_units_plain(bp, y[sl]), 2), nbytes(y, got, *units),
             {dtype: 2 * rows * weight_numel(bp, ("u_w1", "u_w2", "t_w"))},
@@ -1004,14 +1025,15 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
         x = randn(32, t, cfg.latent_dim).to(torch.bfloat16)
         got = ptk.pre_transformer_kernel(kp, x, **kw)
         attn = 2 * kp["wqkv"].shape[0] * cfg.num_attention_heads * cfg.head_dim * t * (t + 1)
-        row("pre_transformer", f"B=32 T={t}", got, ptk.pre_transformer_plain(kp, x, **kw),
+        rec.at_b32("pre_transformer", f"B=32 T={t}", got, ptk.pre_transformer_plain(kp, x, **kw),
             time_ms(lambda: ptk.pre_transformer_kernel(kp, x, **kw), 10),
             time_ms(lambda: ptk.pre_transformer_plain(kp, x, **kw), 2),
             nbytes(x, got, *kp.values()), {dt: 32 * (2 * t * mats + attn)})
         x = randn(32, t, cfg.latent_dim)
         for i, sp in enumerate(ups):
             got, ti = upk.upsample_stage_kernel(sp, x), x.shape[1]
-            row("upsample_stage", f"stage{i} B=32 T={ti}", got, upk.upsample_stage_plain(sp, x),
+            rec.at_b32("upsample_stage", f"stage{i} B=32 T={ti}", got,
+                       upk.upsample_stage_plain(sp, x),
                 time_ms(lambda: upk.upsample_stage_kernel(sp, x), 5),
                 time_ms(lambda: upk.upsample_stage_plain(sp, x), 2),
                 nbytes(x, got, *sp.values()), {dt: 32 * upsample_ops(sp, ti)})
@@ -1042,42 +1064,64 @@ def b32_kernels(rec: Record, dense: dict, cfg, gen) -> None:
     log(f"[kernels] K4, K5, K6 and the upsample at the B = 32 shapes and block 3 at "
         f"{CAP_ROWS} rows of 110 frames: {time.perf_counter() - t_part:.1f} s")
 
-    for name, k, o, bits in STEP_LINEARS:
+    qmm_b32(rec, gen, dev, STEP_LINEARS)
+
+
+def qmm_b32(rec: Record, gen, dev, linears) -> None:
+    """K3 and K7 at M = 32 and 64 (a B = 32 lockstep step's linears at M =
+    B, the code predictor's first pass at 2B) on `linears` ((name, K, O,
+    K7's bit widths)), bf16 x, group 64: each call against its plain
+    version at TOL bf16, timed warm (a graph of one call) with its bound,
+    into rec.b32; K7's 4-bit calls beside torch._weight_int4pack_mm on the
+    same weights."""
+    import torch
+
+    from qwen3_tts_tpu_torch.ops.cuda import packed_matmul as pm
+    from qwen3_tts_tpu_torch.ops.cuda import quant_matmul as qm
+
+    dt = "bfloat16"
+    for name, k, o, widths in linears:
         w8, s8, b8 = qmm_weights(gen, dev, None, k, o)
-        wq, sq, bq = qmm_weights(gen, dev, bits, k, o)
-        lib_w = int4pack_weights(wq, sq, bq, k) if bits == 4 else None
+        packed = {bits: qmm_weights(gen, dev, bits, k, o) for bits in widths}
+        lib_w = int4pack_weights(*packed[4], k) if 4 in packed else None
         for m in (32, 64):
-            x = randn(m, k).to(torch.bfloat16)
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             got = qm.int8_matmul_kernel(x, w8, s8, b8)
-            row("int8_matmul", f"{name} M={m} K={k} O={o}", got,
-                qm.int8_matmul_plain(x, w8, s8, b8),
-                (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s8, b8)), "graph"),
-                time_ms(lambda: qm.int8_matmul_plain(x, w8, s8, b8), 5),
-                nbytes(x, w8, s8, b8, got), {dt: 2 * m * k * o})
-            got = pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)
-            extra = {}
-            if lib_w is not None:
-                lib = torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])
-                err = rel_rms(lib.float(), got.float())
-                if not err <= TOL[dt]:
-                    raise SystemExit(f"torch._weight_int4pack_mm disagrees with K7 ({err:.3e})")
-                extra = {"library_ms": graph_ms(
-                    lambda: torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])),
-                    "library_call": "torch._weight_int4pack_mm", "library_rel_rms": err}
-            row("packed_matmul", f"{bits}-bit {name} M={m} K={k} O={o}", got,
-                pm.packed_matmul_plain(x, wq, sq, bq, bits, 64),
-                (graph_ms(lambda: pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)), "graph"),
-                time_ms(lambda: pm.packed_matmul_plain(x, wq, sq, bq, bits, 64), 5),
-                nbytes(x, wq, sq, bq, got), {dt: 2 * m * k * o}, **extra)
-            if extra:
-                k7 = rec.b32["packed_matmul"][-1]["ms"]
-                log(f"[kernels] library, packed_matmul 4-bit {name} M={m}: "
-                    f"torch._weight_int4pack_mm {extra['library_ms']:.4f} ms (graph) against K7 "
-                    f"{k7:.4f} ms: K7 {'no slower' if k7 <= extra['library_ms'] else 'SLOWER'}; "
-                    f"rel_rms against K7 {extra['library_rel_rms']:.3e}")
+            rec.at_b32("int8_matmul", f"{name} M={m} K={k} O={o}", got,
+                       qm.int8_matmul_plain(x, w8, s8, b8),
+                       (graph_ms(lambda: qm.int8_matmul_kernel(x, w8, s8, b8)), "graph"),
+                       time_ms(lambda: qm.int8_matmul_plain(x, w8, s8, b8), 5),
+                       nbytes(x, w8, s8, b8, got), {dt: 2 * m * k * o})
+            for bits, (wq, sq, bq) in packed.items():
+                got = pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)
+                extra = {}
+                if bits == 4:
+                    lib = torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])
+                    err = rel_rms(lib.float(), got.float())
+                    if not err <= TOL[dt]:
+                        raise SystemExit(f"torch._weight_int4pack_mm disagrees with K7 "
+                                         f"({err:.3e})")
+                    extra = {"library_ms": graph_ms(
+                        lambda: torch._weight_int4pack_mm(x, lib_w[0], 64, lib_w[1])),
+                        "library_call": "torch._weight_int4pack_mm", "library_rel_rms": err}
+                rec.at_b32("packed_matmul", f"{bits}-bit {name} M={m} K={k} O={o}", got,
+                           pm.packed_matmul_plain(x, wq, sq, bq, bits, 64),
+                           (graph_ms(lambda: pm.packed_matmul_kernel(x, wq, sq, bq, bits, 64)),
+                            "graph"),
+                           time_ms(lambda: pm.packed_matmul_plain(x, wq, sq, bq, bits, 64), 5),
+                           nbytes(x, wq, sq, bq, got), {dt: 2 * m * k * o}, **extra)
+                if extra:
+                    k7 = rec.b32["packed_matmul"][-1]["ms"]
+                    log(f"[{rec.tag}] library, packed_matmul 4-bit {name} M={m}: "
+                        f"torch._weight_int4pack_mm {extra['library_ms']:.4f} ms (graph) "
+                        f"against K7 {k7:.4f} ms: K7 "
+                        f"{'no slower' if k7 <= extra['library_ms'] else 'SLOWER'}; rel_rms "
+                        f"against K7 {extra['library_rel_rms']:.3e}")
+        del w8, packed, lib_w
+        torch.cuda.empty_cache()
     for name in ("int8_matmul", "packed_matmul"):
         rs = rec.b32[name]
-        log(f"[kernels] {name} at the B = 32 step's linears, M = 32 / 64 (the tile): "
+        log(f"[{rec.tag}] {name} at the B = 32 step's linears, M = 32 / 64 (the tile): "
             f"{sum(r['ms'] for r in rs):.4f} ms summed over {len(rs)} calls against a bound of "
             f"{sum(r['bound_ms'] for r in rs):.4f} ms")
 
@@ -1806,6 +1850,20 @@ def device_kernels(prof) -> list[str]:
     import torch
 
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def window_device(prof, n: int, label: str, what: str, top: int = 0) -> tuple[float, float]:
+    """(device ms, device kernels) a call of a profiler window of n calls
+    (`what`); logs its `top` rows by device time."""
+    rows = []
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / n / 1e3, e.count // n, e.key[:60]))
+    for ms, k, key in sorted(rows, reverse=True)[:top]:
+        log(f"[{label}]   {what}: {ms:.3f} ms in {k} launches: {key}")
+    return device_us(prof) / 1e3 / n, len(device_kernels(prof)) / n
 
 
 def persistent_checks(card: str, cfg, tkp: dict, ckp: dict, seed, k1_main, k2_main,
@@ -2687,15 +2745,7 @@ def step_times(pl, card: str, label: str, widths=(1, 4, 8), profiled=None,
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-            rows = []
-            for e in prof.key_averages():
-                us = (getattr(e, "self_device_time_total", None)
-                      or getattr(e, "self_cuda_time_total", 0))
-                if us > 0:
-                    rows.append((us / n / 1e3, e.count // n, e.key[:60]))
-            for ms, k, key in sorted(rows, reverse=True)[:top]:
-                log(f"[{label}]   B={b} graph step: {ms:.3f} ms in {k} launches: {key}")
-            return device_us(prof) / 1e3 / n, len(device_kernels(prof)) / n
+            return window_device(prof, n, label, f"B={b} graph step", top)
 
         def eager_step():
             srv.lockstep_step(p, cp, eager, temps, statics, True)
@@ -3150,24 +3200,26 @@ def serving_runs(pl, card: str, label: str, temps, streams,
 
 def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
                   streams=((SERVE_TEXTS, 8), (SERVE_TEXTS[:6], 4)), widths=(1, 8, 16, 32),
-                  pl32=None, w8r: bool = True, profiled=(8, 32), eager_profiled: bool = True):
+                  pl32=None, w8r: bool = True, profiled=(8, 32), eager_profiled: bool = True,
+                  b: int = 8, **run_kw):
     """Batched serving on the megakernel configuration's weights (the
     megakernels idle: the batched path runs the `w8r` product at M = B):
-    serving_runs' counted run of `temps` and `streams`; then, outside it,
-    the `w8r` product's check (`w8r`), the step's times at each of
-    `widths` (its device time at those of `profiled`, the eager step's at
-    the widest with `eager_profiled`), graph against eager, B = 8 against
-    B = 1 (with `pl32`, an fp32 twin, BATCH_ROUNDING's checks). Returns
-    (launch counts of the counted run, metrics)."""
-    launches, m = serving_runs(pl, card, label, temps, streams)
+    serving_runs' counted run of `temps` and `streams` (`run_kw`: its
+    texts, frames and vocoder rows); then, outside it, the `w8r` product's
+    check at M = b (`w8r`), the step's times at each of `widths` (its
+    device time at those of `profiled`, the eager step's at the widest with
+    `eager_profiled`), graph against eager at B = b, B = b against B = 1
+    (with `pl32`, an fp32 twin, BATCH_ROUNDING's checks). Returns (launch
+    counts of the counted run, metrics)."""
+    launches, m = serving_runs(pl, card, label, temps, streams, **run_kw)
     t_part = time.perf_counter()
     if w8r:
-        m["w8r_product"] = w8r_product(pl, card)
+        m["w8r_product"] = w8r_product(pl, card, m=b)
     m["steps"] = step_times(pl, card, label, widths, profiled, eager_profiled)
-    frames = graph_vs_eager(pl, card, label=label)
+    frames = graph_vs_eager(pl, card, label=label, b=b)
     t_tf = time.perf_counter()
     m["batch_vs_single"] = batch_vs_single(pl, card, frames, label, pl32)
-    log(f"[{label}] steps, graph against eager: {t_tf - t_part:.1f} s; B = 8 against B = 1: "
+    log(f"[{label}] steps, graph against eager: {t_tf - t_part:.1f} s; B = {b} against B = 1: "
         f"{time.perf_counter() - t_tf:.1f} s")
     return launches, m
 
@@ -3181,28 +3233,12 @@ def phase_serving(pl, card: str, label: str = "serving", temps=(0.0, 0.85),
 MANY_32_TOKENS, MIN_ROWS_32, STREAM_32_TOKENS = 120, 40, 48
 
 
-def phase_serving_32(pl, card: str, label: str = "serving-32", pl32=None):
-    """The `w8r` configuration at B = 32, on the pipeline phase's model:
-    serving_runs' counted run of generate_many on 32 texts (_texts(32)) at
-    T = 0.85 with at least MIN_ROWS_32 vocoder rows in its one vocoder call,
-    and generate_many_stream of the 32 at batch_size=32; then, outside it,
-    the `w8r` product at M = 32, the B = 32 graph bit for bit its eager step,
-    and B = 32 against B = 1 teacher-forced over 8 steps (`pl32`: the fp32
-    twin's BATCH_ROUNDING checks). (The step's times at B = 32 are
-    phase_serving's.) Returns (launch counts of the counted run, metrics)."""
-    texts = _texts(32)
-    t_part = time.perf_counter()
-    launches, m = serving_runs(pl, card, label, temps=(0.85,), streams=((texts, 32),),
-                               texts=texts, max_tokens=MANY_32_TOKENS,
-                               stream_tokens=STREAM_32_TOKENS, min_rows=MIN_ROWS_32)
-    t_run = time.perf_counter()
-    m["w8r_product"] = w8r_product(pl, card, m=32)
-    frames = graph_vs_eager(pl, card, label=label, b=32)
-    t_tf = time.perf_counter()
-    m["batch_vs_single"] = batch_vs_single(pl, card, frames, label, pl32)
-    log(f"[{label}] counted run {t_run - t_part:.1f} s; w8r product, graph against eager "
-        f"{t_tf - t_run:.1f} s; B = 32 against B = 1 {time.perf_counter() - t_tf:.1f} s")
-    return launches, m
+# phase_serving's B = 32 run (serving-32 at 0.6B, serving-1.7b): the 32
+# texts through generate_many at T = 0.85 and generate_many_stream at
+# batch_size=32
+SERVE_32 = {"temps": (0.85,), "streams": ((_texts(32), 32),), "b": 32, "texts": _texts(32),
+            "max_tokens": MANY_32_TOKENS, "stream_tokens": STREAM_32_TOKENS,
+            "min_rows": MIN_ROWS_32}
 
 
 # The `w8r` product against the fp32 product it replaced, and with TF32
@@ -3314,13 +3350,58 @@ REF_S, LONG_REF_S = 5.0, 9.0  # the long clip's ICL prompt passes the 128-row bu
 LONG_REF_TEXT = "A long reference clip to clone."
 
 
+# bench.py's service_ttfa (bench.py:836-960), the JAX package's service
+# measure at 1.7B: TTSService(batch_size=16, trailing_bucket=128), its text
+# (74 trailing tokens with the test dirs' character-level tokenizer: past
+# the default bucket of 64), a burst of 16 requests of SERVICE_16_TOKENS
+# frames into the idle service; then STEADY_LONG long streams of
+# STEADY_LONG_TOKENS frames at STEADY_TEMP (bench.py's default temperature)
+# keep the batch busy, 4 arrivals of SERVICE_16_TOKENS frames come
+# STEADY_WAIT_S later into the freed slots, and the long streams are then
+# cancelled (TTSRequest.cancel)
+BENCH_TEXT = "Sixteen concurrent users each want their first chunk fast."
+SERVICE_16, SERVICE_16_TRAILING, SERVICE_16_TOKENS = 16, 128, 40
+STEADY_LONG, STEADY_LONG_TOKENS, STEADY_TEMP, STEADY_WAIT_S = 12, 320, 0.9, 2.0
+# the burst rows held against B = 1: the 8 modes and the first and last of
+# the 8 built-in requests (one prompt: their B = 1 singles are alike)
+SERVICE_16_TF_ROWS = (*range(8), 8, 15)
+
+
+def _clip_b64(clip) -> str:
+    """A clip (float PCM at 24 kHz) as base64 16-bit WAV, as a client sends it."""
+    from qwen3_tts_tpu_torch.io.wav import wav_data
+
+    return base64.b64encode(wav_data(np.asarray(clip, np.float32), 24000)).decode()
+
+
+def bench_burst(clip) -> list:
+    """service-1.7b's burst of SERVICE_16: mode_burst's 8 requests, then 8
+    built-in ones of bench.py's text (speaker aiden), as (mode, path, body)."""
+    return mode_burst(clip) + [("bench", "/tts?stream=1", {"text": BENCH_TEXT,
+                                                           "speaker": "aiden"})] * 8
+
+
+def steady_arrivals(clip) -> list:
+    """The 4 arrivals into the busy batch, as (mode, path, body): bench.py's
+    text from two built-in requests, a clone by x-vector and an ICL clone,
+    both of the 5 s `clip`."""
+    from qwen3_tts_tpu_torch import testing
+
+    b64 = _clip_b64(clip)
+    builtin = {"text": BENCH_TEXT, "speaker": "aiden"}
+    return [("builtin", "/tts?stream=1", builtin), ("builtin", "/tts?stream=1", builtin),
+            ("speaker_embedding", "/tts?stream=1", {"text": BENCH_TEXT,
+                                                    "reference_audio_b64": b64}),
+            ("icl", "/tts?stream=1", {"text": BENCH_TEXT, "reference_audio_b64": b64,
+                                      "reference_transcript": testing.REFERENCE_TRANSCRIPT})]
+
+
 def mode_burst(clip) -> list:
     """testing.MODE_BURST as (mode, path, body) HTTP requests, the clip
     (float PCM at 24 kHz) as base64 16-bit WAV, as a client sends it."""
     from qwen3_tts_tpu_torch import testing
-    from qwen3_tts_tpu_torch.io.wav import wav_data
 
-    b64 = base64.b64encode(wav_data(np.asarray(clip, np.float32), 24000)).decode()
+    b64 = _clip_b64(clip)
     out = []
     for mode, (text, speaker, kw) in zip(MODE_NAMES, testing.MODE_BURST, strict=True):
         if mode == "openai_instructions":
@@ -3392,17 +3473,26 @@ def _pcm_ok(data: bytes, spf: int) -> tuple[bool, int]:
 
 def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl32=None,
                   batch_size: int = 8, burst_tokens: int = BURST_TOKENS, tf_rows=None,
-                  burst=None):
+                  burst=None, trailing_bucket=None, steady=None):
     """The always-on service over HTTP on localhost (server.serve at B =
-    batch_size, warmup=True): a burst of batch_size streamed requests
-    (SERVICE_TEXTS in turn, or `burst`: mode_burst's (mode, path, body) of
-    each slot, the modes' prompt layouts in one batch; burst_tokens
+    batch_size, warmup=True; `trailing_bucket` its trailing bucket, the
+    default when None): a burst of batch_size streamed requests
+    (SERVICE_TEXTS in turn, or `burst`: (mode, path, body) of each slot,
+    mode_burst's prompt layouts in one batch; burst_tokens
     frames) at temperature 0 into the idle batch; then (`mixed`), while two
     long requests keep the batch
     running, 4 staggered arrivals (one at 0.85), a client that hangs up
     after its first audio, an OpenAI-style pcm request and a /tts_many of 2
-    texts beside the busy service. Checks every
-    response, the /stats identities after the drain, that the traffic
+    texts beside the busy service; or (`steady`: (mode, path, body) of
+    each arrival) bench.py's steady traffic: STEADY_LONG streams of
+    BENCH_TEXT submitted to the service (STEADY_LONG_TOKENS frames at
+    STEADY_TEMP) keep the batch busy, the arrivals come over HTTP
+    STEADY_WAIT_S later (burst_tokens frames at temperature 0; each one's
+    first PCM byte by mode), then every long stream is cancelled
+    (TTSRequest.cancel) and must end with one final chunk. Checks every
+    response, the /stats identities after the drain (the cancellations
+    counted: the hang-up's, each long stream's cancelled before its end;
+    no slot left active), that the traffic
     captured no graph of the service's keys, the launch counts, and each
     greedy burst stream (those of `tf_rows`, when given) teacher-forced
     against B = 1 on its own frames (a
@@ -3444,7 +3534,9 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         keys_before = set(pool)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        httpd = server.serve(pl, port=0, batch_size=batch_size, warmup=True)
+        httpd = server.serve(pl, port=0, batch_size=batch_size, warmup=True,
+                             **({} if trailing_bucket is None
+                                else {"trailing_bucket": trailing_bucket}))
         warm_s = time.perf_counter() - t0
         svc, port = httpd.tts_service, httpd.server_address[1]
         ours = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
@@ -3482,6 +3574,7 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
                        for i, (_, path, body) in enumerate(burst)]
         for th in threads:
             th.join(timeout=600)
+        longs = _steady_traffic(svc, steady, go, burst_tokens, label) if steady else {}
         # two long requests keep the batch running; once they decode, the
         # staggered arrivals, a hang-up, /v1 and /tts_many
         carriers = 2 if mixed else 0
@@ -3517,7 +3610,8 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
             conn.close()
             done = stats["requests_completed"] + stats["requests_failed"] + stats[
                 "requests_cancelled"]
-            if done == stats["requests_submitted"] or time.perf_counter() > deadline:
+            if ((done == stats["requests_submitted"] and not stats["active_slots"])
+                    or time.perf_counter() > deadline):
                 break
             time.sleep(0.1)
         torch.cuda.synchronize()
@@ -3575,16 +3669,25 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         f"over HTTP per request (s): " + ", ".join(f"{x:.3f}" for x in firsts)
         + f"; min {min(firsts):.3f}, median {np.median(firsts):.3f}, max {max(firsts):.3f} "
         f"({card}, bf16)")
+    def by_mode(prefix, reqs):
+        """{mode: [first PCM byte s, ...]}, {mode: [frames, ...]} of reqs."""
+        first, frames = {}, {}
+        for i, (mode, path, _) in enumerate(reqs):
+            o = outs[f"{prefix}{i}"]
+            first.setdefault(mode, []).append(o["first_s"])
+            frames.setdefault(mode, []).append(_pcm_ok(o["body"][
+                0 if path == "/v1/audio/speech" else 44:], spf)[1] // spf)
+        log(f"[{label}] {prefix}: first PCM byte over HTTP (s) and frames by mode: "
+            + ", ".join(f"{mode} " + "/".join(f"{x:.3f}" for x in xs)
+                        + f" ({'/'.join(map(str, frames[mode]))})" for mode, xs in first.items())
+            + f" ({card}, bf16)")
+        return first, frames
+
     if burst is not None:
-        m["first_audio_by_mode_s"] = {mode: outs[f"burst{i}"]["first_s"]
-                                      for i, (mode, _, _) in enumerate(burst)}
-        m["frames_by_mode"] = {mode: _pcm_ok(outs[f"burst{i}"]["body"][
-            0 if path == "/v1/audio/speech" else 44:], spf)[1] // spf
-            for i, (mode, path, _) in enumerate(burst)}
-        log(f"[{label}] the mode burst: first PCM byte over HTTP (s) and frames by mode: "
-            + ", ".join(f"{mode} {m['first_audio_by_mode_s'][mode]:.3f} "
-                        f"({m['frames_by_mode'][mode]})" for mode, _, _ in burst)
-            + f"; serving RTF {m['burst_rtf']:.4f} ({card}, bf16)")
+        m["first_audio_by_mode_s"], m["frames_by_mode"] = by_mode("burst", burst)
+    if steady:
+        m["steady"] = longs
+        m["steady_first_audio_by_mode_s"], m["steady_frames_by_mode"] = by_mode("steady", steady)
     if mixed:
         log(f"[{label}] staggered arrivals into the running batch (two requests of 120 "
             f"frames decoding): first PCM byte (s): "
@@ -3594,8 +3697,9 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
     ident = stats["requests_submitted"] == (stats["requests_completed"]
                                             + stats["requests_failed"]
                                             + stats["requests_cancelled"])
+    cancelled = int(mixed) + longs.get("cancelled", 0)  # the hang-up, the long streams
     if (not ident or stats["worker_restarts"] or stats["requests_failed"]
-            or stats["requests_cancelled"] != int(mixed)):  # the hang-up
+            or stats["requests_cancelled"] != cancelled or stats["active_slots"]):
         raise SystemExit(f"[{label}] /stats after the drain breaks its identities: {stats}")
     # no capture of the service's keys after warmup; /tts_many's own keys
     after = {k: [(id(g), g.capture_s) for g in gs] for k, gs in pool.items()
@@ -3639,6 +3743,75 @@ def phase_service(pl, card: str, label: str = "service", mixed: bool = True, pl3
         graph_vs_eager(pl, card, label=label, state=svc._prefill_bootstrap(dict(enumerate(
             reqs))), statics=svc.statics)
     return launches, m
+
+
+def _steady_traffic(svc, arrivals: list, go, tokens: int, label: str) -> dict:
+    """phase_service's steady traffic (bench.py's): STEADY_LONG streams of
+    BENCH_TEXT submitted to `svc` keep the batch busy, each drained on its
+    own thread; once every one has audio and STEADY_WAIT_S have passed
+    since the submits, the `arrivals` go over HTTP at once (`go`, tokens
+    frames at temperature 0, names steady0...); after they end, every long
+    stream is cancelled and must end with one final chunk. Returns
+    {"arrivals_s", "still_decoding", "cancelled" (the long streams whose
+    terminal push came after their cancel, as the service counts them),
+    "frames" (each long stream's, to its end)}."""
+    from qwen3_tts_tpu_torch import service as service_mod
+
+    push, terminal = service_mod.TTSRequest._push, {}
+
+    def recording_push(req, item):
+        if isinstance(item, Exception) or item.is_final:
+            terminal.setdefault(req, req.cancelled)
+        return push(req, item)
+
+    service_mod.TTSRequest._push = recording_push
+    try:
+        longs = [svc.submit(BENCH_TEXT, "aiden", temperature=STEADY_TEMP,
+                            max_tokens=STEADY_LONG_TOKENS, seed=500 + i)
+                 for i in range(STEADY_LONG)]
+        got = {i: [] for i in range(STEADY_LONG)}
+
+        def drain(i):
+            try:
+                for c in longs[i].chunks():
+                    got[i].append(c)
+            except Exception as e:  # checked below
+                got[i].append(e)
+
+        drains = [threading.Thread(target=drain, args=(i,)) for i in range(STEADY_LONG)]
+        for th in drains:
+            th.start()
+        t0 = time.perf_counter()
+        while ((not all(got.values()) or time.perf_counter() - t0 < STEADY_WAIT_S)
+               and time.perf_counter() - t0 < 120):
+            time.sleep(0.005)
+        t_arrive = time.perf_counter() - t0
+        threads = [go(f"steady{i}", path, {**body, "temperature": 0.0, "max_tokens": tokens,
+                                           "seed": 600 + i})
+                   for i, (_, path, body) in enumerate(arrivals)]
+        for th in threads:
+            th.join(timeout=600)
+        still = sum(not any(getattr(c, "is_final", False) for c in got[i]) for i in got)
+        for req in longs:
+            req.cancel()
+        for th in drains:
+            th.join(timeout=120)
+    finally:
+        service_mod.TTSRequest._push = push
+    ends = [sum(getattr(c, "is_final", False) for c in got[i]) for i in got]
+    frames = [sum(c.token_range[1] - c.token_range[0] for c in got[i]
+                  if not isinstance(c, Exception)) for i in got]
+    if (any(isinstance(c, Exception) for cs in got.values() for c in cs) or ends != [1] * len(got)
+            or any(req not in terminal for req in longs)):
+        raise SystemExit(f"[{label}] the long streams did not each end with one final chunk "
+                         f"after the cancel: {ends}, {[len(cs) for cs in got.values()]}")
+    cancelled = sum(terminal[req] for req in longs)
+    log(f"[{label}] steady traffic: {STEADY_LONG} long streams ({STEADY_LONG_TOKENS} frames, "
+        f"T={STEADY_TEMP}) decoding; {len(arrivals)} arrivals sent {t_arrive:.3f} s after their "
+        f"submits; long streams still decoding when the arrivals ended: {still}; cancelled: "
+        f"{cancelled}; frames of each long stream to its end: {frames}")
+    return {"arrivals_s": t_arrive, "still_decoding": still, "cancelled": cancelled,
+            "frames": frames}
 
 
 def _service_bootstrap(pl, svc, burst: list, prompts=None):
@@ -3823,8 +3996,9 @@ def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None
     configurations) k3_step_launches too. A replay launches the
     recorded kernels without the wrapper: the kernel's device kernels are
     counted by name (QMM_NAMES) in a profile of 5 replays and must be the
-    capture's launches each. `projection`: the M -> launches a step that
-    small_to_mtp_projection's calls must show. Then the step's times at B = b
+    capture's launches each; that window gives the step's device time.
+    `projection`: the M -> launches a step that small_to_mtp_projection's
+    calls must show. Then the step's times at B = b
     and B = b against B = 1 over the first `tf_steps` steps (`pl32`:
     batch_vs_single's fp32 twin). Returns (the counts, metrics)."""
     import torch
@@ -3851,7 +4025,8 @@ def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None
     expect = tree_launches(pl, name)
     every = k3_step_launches(pl.config) if every_linear else expect
     tile = b > counters()[name][0].M0
-    replayed = replayed_kernels(g, 5, name, label, tile=tile)
+    dev: dict = {}  # the replays' device time: step_times profiles no window
+    replayed = replayed_kernels(g, 5, name, label, tile=tile, out=dev)
     proj = None
     if projection is not None:
         proj = m_per_step(calls[name], pl.cp_params["small_to_mtp_projection"][QMM_KEYS[name]])
@@ -3874,7 +4049,8 @@ def serving_step(pl, card: str, label: str, name: str = "int8_matmul", pl32=None
                          "replay")
     check_counts(label, launches, need=(name,), idle=tuple(k for k in KERNELS if k != name))
     m = {"per_step": launched, "m": hist, "replayed": replayed, "projection_m": proj,
-         "steps": step_times(pl, card, label, widths=(b,))}
+         "steps": step_times(pl, card, label, widths=(b,), profiled=())}
+    m["steps"][b].update(dev)
     # B = 8 runs the kernel at M = 8 (the GEMV where M0 >= 8, else the tile),
     # B = 32 the tile, B = 1 the GEMV at M = 1: the same bound as the `w8r`
     # serving step
@@ -3889,12 +4065,16 @@ QMM_NAMES = {"int8_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<8,"),
              "packed_matmul": re.compile(r"qt_qmm_(gemv|tile)_kernel<[2346],")}
 
 
-def replayed_kernels(g, n: int, name: str, label: str, tile: bool = False) -> int:
+def replayed_kernels(g, n: int, name: str, label: str, tile: bool = False,
+                     out: dict | None = None) -> int:
     """K3's or K7's (`name`) device kernels in a torch.profiler window of n
     replays of graph g (`tile`: the tile's kernels only). A window short of
     n times the capture's launches is taken again, up to five windows, as
     profiled_kernels does (a profiler window can lose records, more often
-    late in the script); the last window's count is returned."""
+    late in the script); the last window's count is returned. `out`
+    receives the window's device ms and device kernels a replay
+    ("graph_device_ms", "kernels"), its top 8 rows logged, so the step's
+    device time needs no window of its own."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
@@ -3911,6 +4091,11 @@ def replayed_kernels(g, n: int, name: str, label: str, tile: bool = False) -> in
         if got >= want:
             log(f"[{label}] {name} kernels in {n} replays by name: "
                 + ", ".join(f"{names.count(k)} {k[:70]}" for k in sorted(set(names))))
+            if out is not None:
+                out["graph_device_ms"], out["kernels"] = window_device(
+                    prof, n, label, f"graph step ({n} replays)", top=8)
+                log(f"[{label}] graph step: device {out['graph_device_ms']:.3f} ms in "
+                    f"{out['kernels']:.0f} device kernels a replay ({n} replays profiled)")
             break
         log(f"[{label}] profile window {window}: {got} {name} kernels of {want}")
     return got
@@ -5202,6 +5387,12 @@ PROJECTION_1_7B = (("projection", 2048, 1024), (1, 2, 8, 16, 32))
 M0_SHAPES_1_7B = (("qkv", 2048, 4096), ("o", 2048, 2048), ("gate/up", 2048, 12288),
                   ("down", 6144, 2048), ("codec head", 2048, 3072),
                   ("cp lm head", 1024, 2048), ("fc1", 2048, 2048), ("fc2", 2048, 2048))
+# a B = 32 lockstep step's 1.7B shapes (qmm_b32 at M = 32 and 64): the
+# talker's linears and small_to_mtp_projection, K7 at 4 and 6 bits each
+# (the code predictor's linears are STEP_LINEARS' 0.6B widths)
+STEP_LINEARS_1_7B = (("qkv", 2048, 4096, (4, 6)), ("o", 2048, 2048, (4, 6)),
+                     ("gate/up", 2048, 12288, (4, 6)), ("down", 6144, 2048, (4, 6)),
+                     ("codec head", 2048, 3072, (4, 6)), ("projection", 2048, 1024, (4, 6)))
 FRAMES_1_7B = 320  # past the 192-slot window's trims and the ring's wrap
 # teacher forcing at 1.7B: the kernels alone to frame 216, then both over
 # frames 216-231, which hold the window's trim at step 225 and, with the
@@ -5317,7 +5508,8 @@ def phase_1_7b(card: str, floors: tuple[float, float], d: str, write_s: float):
     with and without the penalty, and 0); the two launches' plans, two
     runs bit-identical; the frame loop teacher-forced
     across the window's trims and the ring's wrap (TF_1_7B); a profile of
-    8 frames; K3 and K7 at the 1.7B linears (qmm_1_7b) and M0's sweep over
+    8 frames; K3 and K7 at the 1.7B linears (qmm_1_7b; at a B = 32 step's
+    M, qmm_b32 over STEP_LINEARS_1_7B, into rec.b32) and M0's sweep over
     the 1.7B shapes, logged beside the wrappers' M0. `floors`: the empty
     launch's cold floor (plain, writing), from the kernels phase; `d`: the
     1.7B model dir (written from seed 0 by DirWriter in `write_s` seconds),
@@ -5381,6 +5573,7 @@ def phase_1_7b(card: str, floors: tuple[float, float], d: str, write_s: float):
     del tkp, ckp
     torch.cuda.empty_cache()
     qmm_1_7b(rec, gen, dev)
+    qmm_b32(rec, gen, dev, STEP_LINEARS_1_7B)
     swept = m0_sweep(gen, dev, M0_SHAPES_1_7B, tag="1.7b")
     metrics["phase_s"] = time.perf_counter() - t_phase
     log(f"[1.7b] phase: {metrics['phase_s']:.1f} s ({card})")
@@ -5481,9 +5674,10 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
                           m: dict) -> None:
     """serving-1.7b's K3 configuration, loaded from the 1.7B dir `d`:
     generate and generate_stream of K3_1_7B_FRAMES frames with K3's launches a decoded
-    frame (k3_step_launches; 0.6B's beside it), serving_step with the fp32
-    twin, its graph bit for bit the eager step. Fills runs / m["k3"] and
-    ["k3_serving"]."""
+    frame (k3_step_launches; 0.6B's beside it), serving_step at B = 32 (443
+    K3 a step, all on the tile, counted by the tile's name in 5 replays)
+    with the fp32 twin, its graph bit for bit the eager step. Fills runs /
+    m["k3"] and ["k3_serving_b32"]."""
     import torch
 
     import qwen3_tts_tpu_torch as qt
@@ -5505,63 +5699,75 @@ def k3_configuration_1_7b(d: str, card: str, k3_per_frame_06: float, runs: dict,
     if per_frame != expect:
         raise SystemExit("[k3-1.7b] the frame loop did not run every linear on K3")
     m["k3"]["k3_per_frame"] = per_frame
-    # teacher-forced over 8 steps, as the `w8r` step (beside the fp32 twin
-    # a comparison steps six states)
-    runs["k3_serving"], m["k3_serving"] = serving_step(pk, card, "k3-serving-1.7b",
-                                                       pl32=fp32_twin(pk), tf_steps=8)
-    graph_vs_eager(pk, card, label="k3-serving-1.7b")
+    # B = 32, the JAX package's serving batch (its B = 8 step is k3-serving's
+    # at 0.6B and K3's GEMV at the 1.7B M = 8 shapes qmm_1_7b's): every
+    # linear at M = 32 and the first pass's projection at 64, on the tile;
+    # teacher-forced over 8 steps (beside the fp32 twin a comparison steps
+    # six states)
+    runs["k3_serving_b32"], m["k3_serving_b32"] = serving_step(
+        pk, card, "k3-serving-1.7b", pl32=fp32_twin(pk), tf_steps=8, b=32)
+    graph_vs_eager(pk, card, label="k3-serving-1.7b", b=32)
     del pk
     torch.cuda.empty_cache()
 
 
 def phase_serving_1_7b(pl, d: str, card: str, k3_per_frame_06: float, clip):
-    """The 1.7B model batched, on the 1.7b phase's pipeline (megakernel
-    configuration's weights: every talker and code-predictor linear the
-    `w8r` product at M = B, small_to_mtp_projection on K3) and its dir:
-    phase_serving's generate_many (T = 0.85) and generate_many_stream at
-    batch_size=8, the step at B = 1, 8 and 16 with K3 the projection's 15
-    launches a step (M = 2B once, then B), its 5 replays' K3 kernels counted
-    by name, the graph bit for bit the eager step, B = 8 against B = 1 with
-    BATCH_ROUNDING's checks; the service's burst over HTTP (phase_service,
-    the burst alone: mode_burst on the 5 s `clip` of the 1.7B model's own
-    VoiceDesign speech, every mode's prompt layout in one batch) beside the
-    fp32 twin's prefill of the same burst, its greedy graph bit for bit the
-    eager step on that batch; then the K3 configuration loaded from the
-    dir: generate and generate_stream of K3_1_7B_FRAMES frames with K3's
-    launches a decoded frame (k3_step_launches, beside the 0.6B figure), its lockstep
-    step at B = 8 from one graph (serving_step, with the fp32 twin), its graph
-    bit for bit the eager step. Returns (launch counts summed over the
-    counted runs, the counts of each, metrics)."""
+    """The 1.7B model batched at the JAX package's serving widths, on the
+    1.7b phase's pipeline (megakernel configuration's weights: every
+    talker and code-predictor linear the `w8r` product at M = B,
+    small_to_mtp_projection on K3) and its dir: generate_many of 32 texts
+    (T = 0.85, MANY_32_TOKENS frames, at least MIN_ROWS_32 vocoder rows in
+    one call) and generate_many_stream at batch_size=32, the step at B = 1,
+    8 and 32 with K3 the projection's 15 launches a step (M = 2B once,
+    then B), 5 replays of the B = 32 step with its 75 K3 kernels counted
+    by the tile's name, the B = 32 graph bit for bit the eager step, B = 32
+    against B = 1 with BATCH_ROUNDING's checks; the service at bench.py's
+    shape over HTTP (phase_service at SERVICE_16 slots, trailing bucket
+    SERVICE_16_TRAILING: bench_burst, mode_burst on the 5 s `clip` of the
+    1.7B model's own VoiceDesign speech beside 8 built-in requests, every
+    mode's prompt layout in one batch, beside the fp32 twin's prefill of
+    the same burst, its greedy graph bit for bit the eager step on that
+    batch; then steady_arrivals behind STEADY_LONG long streams); one fp32
+    twin of the tree serves both; then the K3 configuration loaded from the
+    dir (k3_configuration_1_7b: its step at B = 32). Returns (launch counts
+    summed over the counted runs, the counts of each, metrics)."""
     import torch
 
     from qwen3_tts_tpu_torch.models import serving as srv
 
     t_phase = time.perf_counter()
     label, runs, m = "serving-1.7b", {}, {}
-    runs["serving"], m["serving"] = phase_serving(
-        pl, card, label, temps=(0.85,), streams=((SERVE_TEXTS, 8),), widths=(1, 8, 16),
-        pl32=fp32_twin(pl), w8r=False, profiled=(8,), eager_profiled=False)
+    twin = fp32_twin(pl)
+    runs["serving_b32"], m["serving_b32"] = phase_serving(
+        pl, card, label, widths=(1, 8, 32), pl32=twin, w8r=False, profiled=(),
+        eager_profiled=False, **SERVE_32)
     expect = pl.config.code_predictor_config.num_code_groups - 1  # a projection a pass
-    for b, r in m["serving"]["steps"].items():
+    for b, r in m["serving_b32"]["steps"].items():
         ok = r["k3_per_step"] == expect and r["k3_m"] == {2 * b: 1, b: expect - 1}
         log(f"[{label}] B={b}: K3 launches a step {r['k3_per_step']} (expected {expect}: the "
             f"projection, M = {2 * b} once, then {b}), M: launches {r['k3_m']} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"[{label}] the B = {b} step did not run the projection on K3")
-    statics = _statics(pl, 1)  # step_times' key: its B = 8 graph, free again
-    state = srv.bind(pl.params, pl.cp_params, _serving_state(pl, SERVE_TEXTS, statics),
-                     statics, True)
-    replayed = replayed_kernels(state.graph, 5, "int8_matmul", label)
-    log(f"[{label}] K3 kernels in 5 replays of the B=8 step: {replayed} (expected "
+    statics = _statics(pl, 1)  # step_times' key: its B = 32 graph, free again
+    state = srv.bind(pl.params, pl.cp_params, _serving_state(pl, _texts(32), statics), statics,
+                     True)
+    # the step's device time at B = 32 from this window (step_times takes none)
+    replayed = replayed_kernels(state.graph, 5, "int8_matmul", label, tile=True,
+                                out=m["serving_b32"]["steps"][32])
+    log(f"[{label}] K3 tile kernels in 5 replays of the B=32 step: {replayed} (expected "
         f"{5 * expect}) {'ok' if replayed == 5 * expect else 'FAIL'}")
     if replayed != 5 * expect:
-        raise SystemExit(f"[{label}] the replays did not launch K3 {expect} times each")
+        raise SystemExit(f"[{label}] the replays did not launch K3's tile {expect} times each")
     m["replayed_k3"] = replayed
     del state
+    torch.cuda.empty_cache()
     log(f"[{label}] serving part: {time.perf_counter() - t_phase:.1f} s")
-    runs["service"], m["service"] = phase_service(pl, card, "service-1.7b", mixed=False,
-                                                  pl32=fp32_twin(pl), burst=mode_burst(clip))
+    runs["service_b16"], m["service_b16"] = phase_service(
+        pl, card, "service-1.7b", mixed=False, pl32=twin, batch_size=SERVICE_16,
+        burst_tokens=SERVICE_16_TOKENS, burst=bench_burst(clip), tf_rows=SERVICE_16_TF_ROWS,
+        trailing_bucket=SERVICE_16_TRAILING, steady=steady_arrivals(clip))
+    del twin
     torch.cuda.empty_cache()
     log(f"[{label}] serving and service parts: {time.perf_counter() - t_phase:.1f} s")
     k3_configuration_1_7b(d, card, k3_per_frame_06, runs, m)
@@ -5628,8 +5834,9 @@ def phase_mixed_1_7b(d: str, card: str):
     (frame_calls: K7 tree_launches a decoded frame, the projection at M = 2
     once and then 1 a frame); a profile of the frame loop with K7's kernels
     by name; mixed_prefill_check in bf16 and on the fp32 twin; serving_step
-    at B = 8 with K7 (the projection M = 16 once, then 8) beside the twin;
-    the graph bit for bit the eager step. Returns (launch counts summed over
+    at B = 32 with K7 (443 a step, all on the tile, counted by the tile's
+    name in 5 replays; the projection M = 64 once, then 32) beside the
+    twin; the graph bit for bit the eager step. Returns (launch counts summed over
     the counted runs, the counts of each, metrics)."""
     import torch
 
@@ -5655,9 +5862,12 @@ def phase_mixed_1_7b(d: str, card: str):
     m["prefill"] = {dt: mixed_prefill_check(p, card, dt, label)
                     for dt, p in (("bfloat16", pl), ("float32", pl32))}
     ng = pl.config.code_predictor_config.num_code_groups - 1
-    runs["step"], m["step"] = serving_step(pl, card, "mixed-serving-1.7b", "packed_matmul",
-                                           pl32=pl32, tf_steps=8, projection={8: ng - 1, 16: 1})
-    graph_vs_eager(pl, card, label="mixed-serving-1.7b")
+    # B = 32 (its B = 8 step is mixed-serving's at 0.6B and K7's GEMV at the
+    # 1.7B M = 8 shapes qmm_1_7b's)
+    runs["step_b32"], m["step_b32"] = serving_step(
+        pl, card, "mixed-serving-1.7b", "packed_matmul", pl32=pl32, tf_steps=8,
+        projection={32: ng - 1, 64: 1}, b=32)
+    graph_vs_eager(pl, card, label="mixed-serving-1.7b", b=32)
     del pl, pl32
     torch.cuda.empty_cache()
     m["phase_s"] = time.perf_counter() - t_phase
@@ -5904,7 +6114,9 @@ def main() -> int:
         launches["serving"], results["serving"] = phase_serving(pl, card)
         mark("serving")
         twin = fp32_twin(pl)
-        runs32["w8r"], results["serving_32"] = phase_serving_32(pl, card, pl32=twin)
+        # its step's times at B = 32 are the serving phase's
+        runs32["w8r"], results["serving_32"] = phase_serving(pl, card, "serving-32", widths=(),
+                                                             pl32=twin, **SERVE_32)
         mark("serving-32")
         runs32["service"], results["service_32"] = phase_service(
             pl, card, "service-32", mixed=False, pl32=twin, batch_size=32,
@@ -6067,6 +6279,14 @@ def main() -> int:
         row["launches_1_7b"] = launches["1_7b"][name]
         row["launches_serving_1_7b"] = launches["serving_1_7b"][name]
         row["launches_serving_1_7b_by_run"] = {k: v[name] for k, v in serving_1_7b_runs.items()}
+        # the 1.7B model at the JAX package's serving widths: B = 32 on the
+        # `w8r`, K3 and mixed layouts; the service at B = 16
+        row["launches_1_7b_b32"] = (serving_1_7b_runs["serving_b32"][name]
+                                    + serving_1_7b_runs["k3_serving_b32"][name]
+                                    + mixed_1_7b_runs["step_b32"][name])
+        row["launches_service_1_7b_b16"] = serving_1_7b_runs["service_b16"][name]
+        if name in rec17.b32:  # K3, K7 at a B = 32 step's 1.7B shapes
+            row["at_1_7b_b32"] = rec17.b32[name]
         row["launches_mixed_serving"] = launches["mixed_serving"][name]
         row["launches_serving_32"] = sum(r[name] for r in runs32.values())
         row["launches_serving_32_by_run"] = {k: v[name] for k, v in runs32.items()}
